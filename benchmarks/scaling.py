@@ -5,10 +5,11 @@ Constant per-device workload: the y-extent grows with the device count, so
 each chip always owns base-ny rows.  Prints one JSON line per device count
 with MLUPS, MLUPS/device, and efficiency vs the single-device run.
 
-On a TPU pod this measures the production multi-chip path (shard_map +
-Pallas + ppermute halos, parallel/halo.py).  On CPU it runs the same
-program over the virtual --xla_force_host_platform_device_count mesh —
-functional validation of the scaling path, not a performance number.
+It measures the multi-device path (`make_sharded_multi_step`) of the
+machine it runs on: on several GPUs of one host, a device measurement; with
+--cpu, the same program over the virtual
+--xla_force_host_platform_device_count mesh — functional validation of the
+scaling path, not a performance number.
 
 Usage:
     python benchmarks/scaling.py [--base-ny 64] [--size 128] [--steps 10]
@@ -71,7 +72,6 @@ def main():
         cfg = preset(
             "reference", nx=args.size, ny=ny, nz=args.size + 1,
             dtype=dtype_s, fft_method="matmul",
-            use_pallas=(backend not in ("cpu",)),
         )
         shape = cfg.grid.shape
         macro = Macro(
@@ -109,7 +109,8 @@ def main():
             "mlups": round(mlups, 2),
             "mlups_per_device": round(per_dev, 2),
             "weak_scaling_efficiency": round(per_dev / base, 4),
-            "backend": backend,
+            "platform": backend,
+            "device_kind": all_devs[0].device_kind,
         }))
     return 0
 

@@ -1,4 +1,4 @@
-"""ekpnp — a TPU-native 3D electrokinetic (EK-PNP) microchannel solver.
+"""ekpnp — a JAX 3D electrokinetic (EK-PNP) microchannel solver.
 
 Brand-new JAX/XLA/Pallas implementation of the capabilities of the reference
 CUDA solver gyf135/EK-PNP-3D: four coupled D3Q27 lattice-Boltzmann

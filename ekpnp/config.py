@@ -1,4 +1,4 @@
-"""Configuration for the EK-PNP-3D TPU framework.
+"""Configuration for the EK-PNP-3D solver.
 
 The reference keeps ALL configuration as compile-time `__constant__` globals
 (reference LBM.h:28-125).  Here everything is a runtime frozen dataclass:
@@ -18,6 +18,7 @@ from typing import Optional
 from .lattice import Lattice, get_lattice
 
 _TWO_PI = 2.0 * math.pi
+_D256 = 0.5e-6 / 256   # the reference channel height over 256 cells
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,7 +52,7 @@ class GridConfig:
 
     @property
     def shape(self) -> tuple[int, int, int]:
-        """Scalar-field shape, (Z, Y, X) — x fastest, matching TPU lanes."""
+        """Scalar-field shape, (Z, Y, X) — x fastest (contiguous)."""
         return (self.nz, self.ny, self.nx)
 
     @property
@@ -213,8 +214,8 @@ class RunConfig:
                                   # lattice (reference parity, LBM.cu:162-463)
                                   # | "D3Q7" (ADE-sufficient, 7/27 the HBM
                                   # traffic per scalar field) | "D3Q19"
-    use_pallas: bool = False      # fused Pallas collide path
-    fft_method: str = "auto"      # "auto" | "fft" | "matmul" (MXU DFT)
+    fft_method: str = "auto"      # Poisson solve: "auto" | "fft" | "matmul"
+                                  # (ops/poisson.solve_method)
     perturb_first_step: bool = False  # seed a convection pattern at step 0
     perturb_pattern: str = "square"   # "square" (reference LBM.cu:651-654) |
                                       # "hexagon" (the reference's commented
@@ -302,16 +303,22 @@ def preset(name: str, **overrides) -> Config:
             run=RunConfig(),
         )
     elif name == "ek-pnp-thermal":
-        # BASELINE config 4: full coupling + thermal, single host.
+        # BASELINE config 4: full coupling + thermal, single host.  The
+        # reference's 0.5 um channel (LBM.h:42) resolved by 256 cells: at
+        # the default 10 nm spacing the 2.56 um channel is ~27 Debye
+        # lengths tall and the PB relaxation (omega = 0.05) diverges, since
+        # omega (1 + kappa^2 / mu_min) > 2 for its lowest sine mode.
         cfg = Config(
-            grid=GridConfig(nx=256, ny=256, nz=257),
+            grid=GridConfig(nx=256, ny=256, nz=257, dx=_D256, dy=_D256,
+                            dz=_D256),
             physics=PhysicsConfig(),
             run=RunConfig(dtype="float32"),
         )
     elif name == "pod":
-        # BASELINE config 5: multi-host sharded run.
+        # BASELINE config 5: multi-host sharded run (spacing as config 4).
         cfg = Config(
-            grid=GridConfig(nx=512, ny=256, nz=257),
+            grid=GridConfig(nx=512, ny=256, nz=257, dx=_D256, dy=_D256,
+                            dz=_D256),
             physics=PhysicsConfig(),
             run=RunConfig(dtype="float32"),
         )
@@ -336,7 +343,12 @@ def from_file(path: str, **extra_overrides) -> Config:
     if path.endswith(".json"):
         data = json.loads(text)
     else:
-        import yaml
+        try:
+            import yaml
+        except ImportError:
+            raise ValueError(
+                f"config file {path!r}: YAML needs the PyYAML package, which "
+                f"is not installed; write the config as .json") from None
 
         data = yaml.safe_load(text)
     if not isinstance(data, dict):

@@ -91,7 +91,7 @@ def dimensionless_banner(cfg: Config) -> str:
     LBM.cu:2419-2446 + main.cu:40-53)."""
     d = cfg.physics.dimensionless(cfg.grid.lz)
     lines = [
-        "EK-PNP-3D (TPU) — 3D electrokinetic flow with heat transfer",
+        "EK-PNP-3D (JAX) — 3D electrokinetic flow with heat transfer",
         f"  domain (NX x NY x NZ): {cfg.grid.nx}x{cfg.grid.ny}x{cfg.grid.nz}",
         f"  M  = {d['M']:.6g}",
         f"  T  = {d['T']:.6g}",

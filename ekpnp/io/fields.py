@@ -57,9 +57,8 @@ def save_fields_sharded(dirpath: str, cfg: Config, macro: Macro, phi, E,
     put("E", E)
     # UNCOMPRESSED by default: deflate of a ~100 MB+ shard on the host
     # CPU runs for seconds inside the timed loop's async writer and
-    # starves the dispatch thread (measured: a 128^3 sharded CLI run
-    # dropped 567 -> 99 MLUPS on the 2-core host).  EKPNP_COMPRESS_FIELDS=1
-    # opts back in where disk is the scarcer resource.
+    # starves the dispatch thread.  EKPNP_COMPRESS_FIELDS=1 opts back in
+    # where disk is the scarcer resource.
     save = (np.savez_compressed
             if os.environ.get("EKPNP_COMPRESS_FIELDS") == "1" else np.savez)
     save(os.path.join(dirpath, f"shard_{pid}.npz"), **payload)

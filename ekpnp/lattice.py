@@ -1,6 +1,6 @@
-"""Lattice definitions for the EK-PNP-3D TPU framework.
+"""Lattice definitions for the EK-PNP-3D solver.
 
-TPU-native representation of the velocity sets: instead of 27 unrolled scalar
+Array representation of the velocity sets: instead of 27 unrolled scalar
 direction variables (reference: LBM.cu:507-618), every lattice is a pair of
 small constant arrays
 
@@ -9,7 +9,7 @@ small constant arrays
     OPP : (Q,)   int   — index of the opposite direction, OPP[0] == 0
 
 so that all physics ops (equilibria, TRT even/odd split, streaming, moments)
-vectorize over a leading direction axis and compile to large fused VPU ops.
+vectorize over a leading direction axis and compile to large fused ops.
 
 The primary lattice is D3Q27, matching the reference exactly:
   - ndir = 27            (reference LBM.h:102)

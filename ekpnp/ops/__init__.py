@@ -1,1 +1,1 @@
-"""Physics operators (the reference's L2/L3 layers, vectorized for TPU)."""
+"""Physics operators (the reference's L2/L3 layers, vectorized for XLA)."""

@@ -1,9 +1,9 @@
 """TRT collision for all four populations + Guo forcing + macro fields.
 
-TPU-native re-design of the reference hot kernel `gpu_collide_save`
+A vectorized re-design of the reference hot kernel `gpu_collide_save`
 (reference LBM.cu:483-1846): the 4 x 27 unrolled scalar expressions become
 batched array ops over a leading direction axis, letting XLA fuse the whole
-collision into a handful of VPU loops.  The algebra is identical:
+collision into a handful of loops.  The algebra is identical:
 
   - moments of pre-collision populations           (LBM.cu:621-630)
   - body force: Coulomb + external + Boussinesq    (LBM.cu:632-637)

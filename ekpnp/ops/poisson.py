@@ -1,7 +1,7 @@
 """Spectral Poisson solver for the electric potential + E-field gradient.
 
-TPU-native re-design of the reference cuFFT pipeline (poisson.cu:75-103):
-the per-step cudaMalloc/Free and 5 separate kernels collapse into one pure
+A re-design of the reference cuFFT pipeline (poisson.cu:75-103): the
+per-step cudaMalloc/Free and 5 separate kernels collapse into one pure
 jitted function — odd extension, FFT, spectral divide, inverse FFT,
 extraction and the E-field gradient all fuse under one `jit` with zero
 host round-trips.
@@ -60,22 +60,29 @@ def minus_laplacian_symbol(cfg: Config, dtype=np.float64):
     return mu
 
 
-def odd_extension(cfg: Config, charge, chargen):
-    """Build the odd-extended RHS (NE, NY, NX) — poisson.cu:114-158."""
+def charge_rhs(cfg: Config, charge, chargen):
+    """Charge RHS rows z = 1..NZ-2, -kappa (c+ - c-) (no plate folds)."""
+    p = cfg.physics
+    dtype = charge.dtype
+    kappa = dtype.type(p.convert_c_to_charge / p.eps)
+    return -kappa * (charge[1:-1] - chargen[1:-1])
+
+
+def odd_extension(cfg: Config, rhs):
+    """The odd-extended RHS (NE, NY, NX) from the charge RHS rows
+    z = 1..NZ-2, with the Dirichlet plate potentials folded into rows 1
+    and NZ-2 as -voltage/dz^2 (poisson.cu:114-158)."""
     p = cfg.physics
     g = cfg.grid
-    dtype = charge.dtype
+    dtype = rhs.dtype
     inv_dz2 = dtype.type(1.0 / (g.dz * g.dz))
-    kappa = dtype.type(p.convert_c_to_charge / p.eps)
-
-    rhs = -kappa * (charge - chargen)  # (NZ, NY, NX)
     plane = jnp.zeros_like(rhs[0])
     top = jnp.concatenate(
         [
             plane[None],                                       # z = 0
-            (rhs[1] - dtype.type(p.voltage) * inv_dz2)[None],  # z = 1
-            rhs[2 : g.nz - 2],                                 # interior
-            (rhs[g.nz - 2] - dtype.type(p.voltage2) * inv_dz2)[None],  # z = NZ-2
+            (rhs[0] - dtype.type(p.voltage) * inv_dz2)[None],  # z = 1
+            rhs[1:-1],                                         # interior
+            (rhs[-1] - dtype.type(p.voltage2) * inv_dz2)[None],  # z = NZ-2
             plane[None],                                       # z = NZ-1
         ],
         axis=0,
@@ -85,45 +92,11 @@ def odd_extension(cfg: Config, charge, chargen):
     return jnp.concatenate([top, mirror], axis=0)
 
 
-def dst_symbol(cfg: Config, dtype=np.float64):
-    """mu(m, ky, kx) for the DST-I form: same modified wavenumber as the
-    odd-extension FFT (gpu_derivative, poisson.cu:169-180) restricted to the
-    sine modes m = 1..NZ-2 — the k=0 plane (whose exact cancellation the
-    reference relies on) structurally does not exist here."""
-    g = cfg.grid
-    kx, ky, _ = wavenumbers(cfg, dtype)
-    m = np.arange(1, g.nz - 1, dtype=dtype)
-    sz = (4.0 / g.dz**2) * np.sin(np.pi * m / g.ne) ** 2
-    return sz[:, None, None] + (ky * ky)[None, :, None] + (kx * kx)[None, None, :]
-
-
-def interior_rhs(cfg: Config, charge, chargen):
-    """RHS rows z = 1..NZ-2 with the Dirichlet plate folds (the top half of
-    odd_extension, poisson.cu:118-137)."""
-    p = cfg.physics
-    g = cfg.grid
-    dtype = charge.dtype
-    inv_dz2 = dtype.type(1.0 / (g.dz * g.dz))
-    rhs = charge_rhs(cfg, charge, chargen)
-    rhs = rhs.at[0].add(-dtype.type(p.voltage) * inv_dz2)
-    rhs = rhs.at[-1].add(-dtype.type(p.voltage2) * inv_dz2)
-    return rhs
-
-
-def charge_rhs(cfg: Config, charge, chargen):
-    """Charge-only RHS rows z = 1..NZ-2 (no plate folds — those are carried
-    by the lifting function on the DST path)."""
-    p = cfg.physics
-    dtype = charge.dtype
-    kappa = dtype.type(p.convert_c_to_charge / p.eps)
-    return -kappa * (charge[1:-1] - chargen[1:-1])
-
-
 def _scaled_inv_symbol(cfg: Config, dtype, extra_scale: float):
     """-extra_scale / mu as three broadcastable 1-D factors combined inside
     the jit — XLA fuses the broadcasts into the consuming multiply, so the
-    full-volume symbol never exists in HBM (unlike the reference's
-    precomputed kx/ky/kz device tables, main.cu:118-152)."""
+    full-volume symbol never exists in device memory (unlike the
+    reference's precomputed kx/ky/kz device tables, main.cu:118-152)."""
     g = cfg.grid
     kx, ky, _ = wavenumbers(cfg, np.float64)
     m = np.arange(1, g.nz - 1, dtype=np.float64)
@@ -139,9 +112,9 @@ def lifting_profile(cfg: Config, dtype):
     z-linear function matching the plate potentials.  Its second difference
     is exactly zero, so solving for psi = phi - phi_L with HOMOGENEOUS
     Dirichlet walls needs no +-voltage/dz^2 folds in the RHS — removing the
-    ~1e13-magnitude boundary terms whose cancellation otherwise forces
-    6-pass (HIGHEST) matmul precision on the f32 TPU path.  Algebraically
-    identical to the reference's folded RHS (poisson.cu:118-137)."""
+    ~1e13-magnitude boundary terms that would otherwise cancel in f32.
+    Algebraically identical to the reference's folded RHS
+    (poisson.cu:118-137)."""
     p = cfg.physics
     g = cfg.grid
     z = np.arange(g.nz, dtype=np.float64)
@@ -149,125 +122,57 @@ def lifting_profile(cfg: Config, dtype):
     return jnp.asarray(prof, dtype)[:, None, None]
 
 
-def poisson_solve_dst(cfg: Config, charge, chargen, mesh=None):
-    """Reduced solve, all-real transforms: DST-I in z (real MXU matmul over
-    NZ-2 rows — a quarter of the odd-extended FFT work) + real Hartley
-    transform in x,y (the symbol is even in kx and ky, so Hartley filtering
-    equals DFT filtering at 1/4 the matmul work).  Mathematically identical
-    to the reference's odd-extension complex FFT (poisson.cu:75-103).
-
-    The Dirichlet plate potentials enter through a z-linear lifting
-    function (see lifting_profile) rather than the reference's RHS folds,
-    so the transformed data stays at the charge scale and 3-pass matmuls
-    suffice in f32.  Every stage is a transpose-free MXU contraction; all
-    normalizations (inverse DST 4/NE, inverse Hartley 1/(NY*NX)) fold into
-    one fused spectral multiply, and the final z-stage matmul emits the
-    wall rows (overwritten in one fused select with the exact plate
-    values)."""
-    return poisson_phi_from_rhs(cfg, charge_rhs(cfg, charge, chargen), mesh)
-
-
-def poisson_phi_from_rhs(cfg: Config, rhs, mesh=None, rhs_hx: bool = False):
-    """The DST/Hartley solve core, taking the interior RHS rows z=1..NZ-2
-    directly (the fused kernel emits them, pallas/fused_step.py).
-
-    rhs_hx=True: the RHS arrives already x-Hartley-transformed (emitted on
-    the fused kernel's idle MXU, fused_step.py hartley_x) — the separable
-    stages commute, so the solve skips its forward x-stage and applies a
-    single inverse x-stage after the symbol multiply."""
-    from ..parallel.fft import (dst_z, dst_z_padded, fft2_xy, hartley2_xy,
-                                hartley_x_local, hartley_y)
+def _poisson_phi_dst(cfg: Config, rhs, mesh=None):
+    """Reduced solve, all-real dense transforms: DST-I in z (NZ-2 rows, a
+    quarter of the odd-extended FFT work) + real Hartley transform in x,y
+    (the symbol is even in kx and ky, so Hartley filtering equals DFT
+    filtering).  Mathematically identical to the reference's odd-extension
+    complex FFT (poisson.cu:75-103).  The plate potentials enter through
+    the z-linear lifting function, every stage is one transpose-free
+    matmul at HIGHEST precision, all normalizations (inverse DST 4/NE,
+    inverse Hartley 1/(NY*NX)) fold into the one spectral multiply, and
+    the final z-stage emits the wall rows, overwritten with the exact
+    plate values."""
+    from ..parallel.fft import dst_z, dst_z_padded, hartley2_xy
 
     g = cfg.grid
     p = cfg.physics
     dtype = rhs.dtype
-
-    # combined scale: DST-I inverse (4/NE) and Hartley/DFT inverse (1/(NY*NX))
     inv_sym = _scaled_inv_symbol(cfg, dtype, 4.0 / (g.ne * g.ny * g.nx))
-
-    method = None if cfg.run.fft_method == "auto" else cfg.run.fft_method
-    if method == "dst":
-        method = None
-    if rhs_hx and method == "fft":
-        raise ValueError("rhs_hx RHS is Hartley-space; fft_method='fft' "
-                         "cannot consume it")
-    s_z = dst_z(rhs)
-    if rhs_hx:
-        spec = hartley_y(s_z, mesh) * inv_sym
-        back = hartley_x_local(hartley_y(spec, mesh))
-    elif method != "fft":
-        # real path: cas-basis transform on the MXU, self-inverse up to NY*NX
-        spec = hartley2_xy(s_z, mesh) * inv_sym
-        back = hartley2_xy(spec, mesh)
-    else:
-        spec = fft2_xy(s_z, mesh, method=method) * inv_sym
-        back = jnp.real(fft2_xy(spec, mesh, inverse=True, method=method)
-                        ).astype(dtype) * dtype.type(g.ny * g.nx)
-    phi = dst_z_padded(back) + lifting_profile(cfg, dtype)
-
+    spec = hartley2_xy(dst_z(rhs), mesh) * inv_sym
+    phi = dst_z_padded(hartley2_xy(spec, mesh)) + lifting_profile(cfg, dtype)
     zidx = jax.lax.broadcasted_iota(jnp.int32, (g.nz, 1, 1), 0)
     phi = jnp.where(zidx == 0, dtype.type(p.voltage), phi)
     phi = jnp.where(zidx == g.nz - 1, dtype.type(p.voltage2), phi)
     return phi
 
 
-def poisson_psi_hx_from_rhs(cfg: Config, rhs_hx, mesh=None):
-    """Fully-fused-x solve: Hartley-space RHS in (the fused kernel emits
-    it, fused_step.py hartley_x), Hartley-space potential out — psi_hx
-    (NZ, NY, NX) with exactly-zero wall rows (dst_z_padded emits them),
-    satisfying  phi = H_x(psi_hx) + lifting_profile  (phi_from_psi_hx).
-
-    Neither x-stage runs here: the forward one happened on the kernel's
-    idle MXU last step and the inverse one happens there next step
-    (fused_step.py phi_hx), so the serial solve is dst_z -> hartley_y ->
-    symbol multiply -> hartley_y -> padded inverse DST only.  Used by the
-    multi-step scan loops, which encode/decode once per chunk
-    (pallas/step.py multi_step_pallas)."""
-    from ..parallel.fft import dst_z, dst_z_padded, hartley_y
-
-    g = cfg.grid
-    dtype = rhs_hx.dtype
-    if cfg.run.fft_method == "fft":
-        raise ValueError("psi_hx solve requires the Hartley (matmul) path")
-    inv_sym = _scaled_inv_symbol(cfg, dtype, 4.0 / (g.ne * g.ny * g.nx))
-    s_z = dst_z(rhs_hx)
-    spec = hartley_y(s_z, mesh) * inv_sym
-    back = hartley_y(spec, mesh)
-    return dst_z_padded(back)
+def solve_method(cfg: Config) -> str:
+    """"fft": the odd-extension FFT solve (the reference's own algorithm;
+    the f64 oracle); "matmul": the DST/Hartley solve.  "auto" takes the
+    oracle on the CPU and the matmul solve on the GPU, where it measured
+    faster than cuFFT at the same accuracy (PERF.md)."""
+    m = cfg.run.fft_method
+    if m in ("fft", "matmul"):
+        return m
+    if m != "auto":
+        raise ValueError(f"unknown fft_method {m!r} (auto|fft|matmul)")
+    return "fft" if jax.default_backend() == "cpu" else "matmul"
 
 
-def phi_from_psi_hx(cfg: Config, psi):
-    """Decode the x-Hartley potential: phi = H_x(psi) + lifting.  The wall
-    rows come out exactly voltage/voltage2 (psi wall rows are identically
-    zero and lifting interpolates the plate values)."""
-    from ..parallel.fft import hartley_x_local
-
-    return hartley_x_local(psi) + lifting_profile(cfg, psi.dtype)
-
-
-def psi_hx_from_phi(cfg: Config, phi):
-    """Encode real phi into x-Hartley space: psi = H_x(phi - lifting)/NX
-    (H_x is self-inverse up to NX)."""
-    from ..parallel.fft import hartley_x_local
-
-    g = cfg.grid
-    dtype = phi.dtype
-    return hartley_x_local(phi - lifting_profile(cfg, dtype)) \
-        * dtype.type(1.0 / g.nx)
+def poisson_phi_from_rhs(cfg: Config, rhs, mesh=None):
+    """phi from the charge RHS rows z = 1..NZ-2 (`charge_rhs`, or the
+    fused kernel's emitted RHS, pallas/push_step.py)."""
+    if solve_method(cfg) == "fft":
+        return _poisson_phi_ext(cfg, rhs, mesh)
+    return _poisson_phi_dst(cfg, rhs, mesh)
 
 
 def poisson_phi(cfg: Config, charge, chargen, mesh=None):
     """One potential solve, phi only (E is the exact gradient of phi and is
-    derived where consumed — in-kernel on the Pallas path, `efield` on the
-    oracle path).  Dispatch: "fft" = odd-extension + jnp.fft (the n log n
-    oracle, exact reference semantics); "dst"/"matmul" = the reduced
-    all-real MXU path; "auto" = oracle on CPU, MXU path elsewhere."""
-    m = cfg.run.fft_method
-    if m == "fft":
-        return _poisson_phi_ext(cfg, charge, chargen, mesh)
-    if m == "auto" and jax.default_backend() == "cpu":
-        return _poisson_phi_ext(cfg, charge, chargen, mesh)
-    return poisson_solve_dst(cfg, charge, chargen, mesh)
+    derived where consumed — in-kernel on the kernel path, `efield` on the
+    jnp path)."""
+    return poisson_phi_from_rhs(cfg, charge_rhs(cfg, charge, chargen), mesh)
 
 
 def poisson_solve(cfg: Config, charge, chargen, mesh=None):
@@ -276,21 +181,21 @@ def poisson_solve(cfg: Config, charge, chargen, mesh=None):
     return phi, efield(cfg, phi)
 
 
-def _poisson_phi_ext(cfg: Config, charge, chargen, mesh=None):
-    """One potential solve: (c+, c-) -> phi.  All on device, one jit.
-
-    With a mesh, the 3D transform runs as a distributed pencil FFT
-    (parallel/fft.py) with all-to-all repartitions between 1D stages."""
+def _poisson_phi_ext(cfg: Config, rhs, mesh=None):
+    """The reference's solve: odd extension, 3D FFT, spectral divide,
+    inverse FFT, extraction.  With a mesh, the 3D transform runs as a
+    distributed pencil FFT (parallel/fft.py) with all-to-all
+    repartitions between 1D stages."""
     from ..parallel.fft import fft3
 
     g = cfg.grid
     p = cfg.physics
-    dtype = charge.dtype
+    dtype = rhs.dtype
 
-    ext = odd_extension(cfg, charge, chargen)
+    ext = odd_extension(cfg, rhs)
     mu = jnp.asarray(minus_laplacian_symbol(cfg, np.float64), dtype)
 
-    method = None if cfg.run.fft_method == "auto" else cfg.run.fft_method
+    method = "fft" if cfg.run.fft_method == "fft" else None
     spec = fft3(ext, mesh, method=method)
     spec = spec / (-mu)
     # The DC mode of the odd-extended RHS is exactly zero by symmetry; the

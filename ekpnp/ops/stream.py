@@ -4,9 +4,9 @@ Reference semantics: f1[x, d] = f2[x - e_d] with fully periodic wrap in all
 three directions (modular index math, LBM.cu:1970-1975); the wall kernels
 overwrite the unphysical z-wrap rows afterwards (boundary.py).
 
-TPU-native form: one `jnp.roll` per direction — a lane/sublane rotation in
-x/y and a block rotation in z, all fused by XLA.  The Pallas fast path fuses
-these shifts into the collide kernel (ekpnp/pallas/).
+Here: one `jnp.roll` per direction, fused by XLA.  The GPU kernel
+(ekpnp/pallas/push_step.py) instead writes each post-collision population
+straight to its destination node.
 """
 from __future__ import annotations
 

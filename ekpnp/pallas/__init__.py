@@ -1,1 +1,1 @@
-"""Pallas TPU kernels — the performance path for the hot ops."""
+"""Pallas GPU kernels (Triton route) — the performance path for the step."""

@@ -1,166 +1,59 @@
-"""Timestep built on the fused Pallas kernel.
+"""Timestep built on the fused GPU kernel (pallas/push_step.py).
 
-Same semantics as ekpnp.step.step (the jnp oracle), but collide + boundary
-+ stream + scalar wall BCs all happen inside one kernel, and the Poisson
-solve consumes the kernel-emitted pre-collision ion moments.
+Same semantics as ekpnp.step.step (the jnp oracle): the kernel does
+collide + bounce-back + stream + scalar wall BCs and emits the Poisson
+RHS, and the spectral solve turns that RHS into the next potential.
 """
 from __future__ import annotations
 
-from functools import lru_cache, partial
+from functools import partial
 
 import jax
-import jax.numpy as jnp
 
 from ..config import Config
-from ..ops.poisson import poisson_phi_from_rhs, poisson_psi_hx_from_rhs
+from ..ops.poisson import poisson_phi_from_rhs
 from ..state import State
-from .fused_step import auto_cchunk, build_fused_step
+from .push_step import build_push_step
 
 
-@lru_cache(maxsize=None)
-def _get_fused(cfg: Config, dtype_name: str, interpret: bool, ty: int,
-               pad_x, phi_hx: bool = False, cchunk: int = -1,
-               emit_group: int = 0, emit_slots: int = 2):
-    if cchunk < 0:
-        cchunk = auto_cchunk(cfg, ty)
-    return build_fused_step(
-        cfg, dtype=jnp.dtype(dtype_name), interpret=interpret, ty_override=ty,
-        pad_x=pad_x, phi_hx=phi_hx, cchunk=cchunk, emit_group=emit_group,
-        emit_slots=emit_slots,
-    )
-
-
-def step_pallas(cfg: Config, state: State, mesh=None, interpret: bool = False,
-                ty_override: int = 0, pad_x=None, cchunk: int = -1,
-                emit_group: int = 0, emit_slots: int = 2):
-    """One fused timestep.  Returns (state', rhs) — the kernel-emitted
-    interior Poisson-RHS planes (z = 1..NZ-2) from this step's
-    pre-collision ion moments (what the reference stores in collide and
-    feeds to fast_Poisson)."""
+def step_kernel(cfg: Config, state: State, mesh=None,
+                interpret: bool = False) -> State:
+    """One fused timestep."""
     p = cfg.physics
-    fused = _get_fused(cfg, state.f.dtype.name, interpret, ty_override, pad_x,
-                       cchunk=cchunk, emit_group=emit_group,
-                       emit_slots=emit_slots)
-    f1, h1, hn1, g1, rhs = fused(state.f, state.h, state.hn, state.g, state.phi)
+    fused = build_push_step(cfg, state.f.dtype.name, interpret)
+    f1, h1, hn1, g1, rhs = fused(state.f, state.h, state.hn, state.g,
+                                 state.phi)
     phi = state.phi
     if p.enable_ek:
-        # rhs is x-Hartley-space when the kernel fused the forward x-stage
-        # onto its idle MXU (fused_step.py hartley_x)
-        phi = poisson_phi_from_rhs(cfg, rhs, mesh, rhs_hx=fused.hartley_x)
+        phi = poisson_phi_from_rhs(cfg, rhs, mesh)
     dt = state.t.dtype.type(p.dt(cfg.grid.dx))
-    return (
-        State(f=f1, h=h1, hn=hn1, g=g1, phi=phi, t=state.t + dt),
-        rhs,
-    )
-
-
-def step_pallas_hx(cfg: Config, state: State, mesh=None,
-                   interpret: bool = False, ty_override: int = 0):
-    """One fused timestep in x-Hartley phi encoding: state.phi holds
-    psi_hx (phi = H_x(psi) + lifting, ops/poisson.py phi_from_psi_hx).
-    The kernel decodes each phi window plane on its idle MXU (phi_hx) and
-    emits the RHS already x-transformed (hartley_x), so the serial
-    spectral solve runs with NO x-stage at all.  Used inside multi-step
-    scans, which encode/decode once per compiled chunk."""
-    p = cfg.physics
-    fused = _get_fused(cfg, state.f.dtype.name, interpret, ty_override,
-                       None, phi_hx=True)
-    f1, h1, hn1, g1, rhs = fused(state.f, state.h, state.hn, state.g, state.phi)
-    psi = poisson_psi_hx_from_rhs(cfg, rhs, mesh)
-    dt = state.t.dtype.type(p.dt(cfg.grid.dx))
-    return State(f=f1, h=h1, hn=hn1, g=g1, phi=psi, t=state.t + dt)
+    return State(f=f1, h=h1, hn=hn1, g=g1, phi=phi, t=state.t + dt)
 
 
 @partial(jax.custom_vjp, nondiff_argnums=(0, 2, 3))
-def step_pallas_diff(cfg: Config, state: State, mesh=None,
+def step_kernel_diff(cfg: Config, state: State, mesh=None,
                      interpret: bool = False) -> State:
-    """Differentiable production step (round-4 verdict item 6): the
-    forward pass IS the fused Pallas kernel (production speed); the
-    backward pass is the jnp-oracle step's exact VJP.  The two forwards
-    are equal to ~1e-11 relative (tests/test_pallas_fused.py), so the
-    gradient is exact to the same tolerance — no silent 12x fallback on
-    the forward, oracle-speed adjoint only where an adjoint is asked for.
-    The reference has no adjoint path at all (SURVEY.md §5)."""
-    new, _ = step_pallas(cfg, state, mesh=mesh, interpret=interpret)
-    return new
-
-
-def _oracle_cfg(cfg: Config) -> Config:
-    import dataclasses
-
-    return dataclasses.replace(
-        cfg, run=dataclasses.replace(cfg.run, use_pallas=False))
+    """Differentiable production step: the forward pass is the fused
+    kernel; the backward pass is the exact VJP of the jnp-oracle step,
+    which the kernel equals to round-off (tests/test_kernel.py)."""
+    return step_kernel(cfg, state, mesh=mesh, interpret=interpret)
 
 
 def _diff_fwd(cfg, state, mesh, interpret):
-    # jax>=0.9 passes fwd the primal's original argument order (nondiff
-    # args NOT moved to the front; bwd still gets them first)
-    new, _ = step_pallas(cfg, state, mesh=mesh, interpret=interpret)
-    return new, state  # residual: the step input (backward re-linearizes)
+    # custom_vjp passes fwd the primal's argument order (nondiff args in
+    # place); bwd gets the nondiff args first
+    return step_kernel(cfg, state, mesh=mesh, interpret=interpret), state
 
 
 def _diff_bwd(cfg, mesh, interpret, state, ct):
     from ..step import step as oracle_step
 
-    ocfg = _oracle_cfg(cfg)
-
     def fwd(s):
-        new, _ = oracle_step(ocfg, s, mesh=mesh)
+        new, _ = oracle_step(cfg, s, mesh=mesh)
         return new
 
     _, vjp = jax.vjp(fwd, state)
     return vjp(ct)
 
 
-step_pallas_diff.defvjp(_diff_fwd, _diff_bwd)
-
-
-def _phi_hx_capable(cfg: Config, interpret: bool = False) -> bool:
-    import os
-
-    from .fused_step import _padded_nx, fused_supported, phi_hx_profitable
-
-    env = os.environ.get("EKPNP_PHIHX")  # A/B probe knob
-    if env == "0":
-        return False
-    g = cfg.grid
-    ok = (cfg.physics.enable_ek and fused_supported(cfg)
-          and cfg.run.fft_method != "fft"
-          and _padded_nx(g.nx, 0 if interpret else 128) == g.nx)
-    # measured heuristic — the phi decode loses on narrow strips
-    # (fused_step.phi_hx_profitable); EKPNP_PHIHX=1 forces it on.
-    # Interpret mode (CPU equality tests) is capability-only: no perf gate.
-    return ok and (interpret or env == "1"
-                   or phi_hx_profitable(cfg, interpret))
-
-
-@partial(jax.jit, static_argnums=(0, 2), donate_argnums=(1,))
-def multi_step_pallas(cfg: Config, state: State, n: int) -> State:
-    # unroll=2 so the buffers ping-pong without carry copies — see
-    # ekpnp.step.multi_step
-    if _phi_hx_capable(cfg):
-        return multi_step_pallas_hx(cfg, state, n)
-
-    def body(carry, _):
-        new, _ = step_pallas(cfg, carry)
-        return new, None
-
-    state, _ = jax.lax.scan(body, state, None, length=n, unroll=2)
-    return state
-
-
-def multi_step_pallas_hx(cfg: Config, state: State, n: int,
-                         interpret: bool = False) -> State:
-    """n steps carrying phi in x-Hartley encoding across the whole chunk:
-    one encode, n x-stage-free steps, one decode — the two x-Hartley
-    matmuls per step ride the kernel's idle MXU instead of serializing in
-    the spectral solve (~2 of its 5 remaining matmul stages)."""
-    from ..ops.poisson import phi_from_psi_hx, psi_hx_from_phi
-
-    state = state._replace(phi=psi_hx_from_phi(cfg, state.phi))
-
-    def body(carry, _):
-        return step_pallas_hx(cfg, carry, interpret=interpret), None
-
-    state, _ = jax.lax.scan(body, state, None, length=n, unroll=2)
-    return state._replace(phi=phi_from_psi_hx(cfg, state.phi))
+step_kernel_diff.defvjp(_diff_fwd, _diff_bwd)

@@ -5,13 +5,11 @@ separable transform with two interchangeable backends:
 
   - "fft":    `jnp.fft` per axis — exact n log n, used on a single CPU
     device (f64 validation path).
-  - "matmul": DFT as einsum against a precomputed (n, n) DFT matrix — the
-    TPU-native path.  Each 1D transform is one complex matmul on the MXU;
-    at the solver's extents (<= 512) the extra O(n) flops are far below the
-    HBM-bound collide cost, and the op shards cleanly under GSPMD (the XLA
-    SPMD partitioner miscompiles partitioned FFT ops with c128 operands —
-    a hardcoded c64 scaling constant — so the matmul path is also the
-    correctness workaround for distributed runs).
+  - "matmul": DFT as einsum against a precomputed (n, n) DFT matrix.
+    Each 1D transform is one complex matmul; the op shards cleanly under
+    GSPMD (the XLA SPMD partitioner miscompiles partitioned FFT ops with
+    c128 operands — a hardcoded c64 scaling constant — so the matmul path
+    is also the correctness workaround for distributed runs).
 
 Sharded layouts: 1D transforms only ever run along *unsharded* axes;
 `with_sharding_constraint` repartitions between stages make XLA insert the
@@ -47,24 +45,19 @@ def _dft_matrix(n: int, inverse: bool, f64: bool):
 
 
 # Contraction subscripts that keep the output axis order equal to the input's
-# with NO transposes: each 1D transform is a single dot_general the MXU runs
-# natively ('zyx,kx->zyk' is A @ H^T, 'ky,zyx->zkx' a z-batched H @ A).
+# with NO transposes: each 1D transform is a single dot_general
+# ('zyx,kx->zyk' is A @ H^T, 'ky,zyx->zkx' a z-batched H @ A).
 _EINSUM_3D = {0: "kz,zyx->kyx", 1: "ky,zyx->zkx", 2: "zyx,kx->zyk"}
 
 
 def _contract(mat, a, axis: int):
     """Apply (n, n) `mat` along `axis` of 3D `a`, transpose-free.
 
-    f32 runs at HIGH (3-pass bf16 — near-f32 accuracy at half the MXU cost
-    of HIGHEST): the lifting-function formulation (ops/poisson.py) keeps
-    the data at the charge scale, so no catastrophic boundary-term
-    cancellation remains.  Complex (c64/c128) stages — the odd-extension
-    oracle — keep HIGHEST: they carry the ~1e13 plate folds."""
+    Always HIGHEST: on the GPU a lower precision lets an f32 contraction
+    run in TF32, which keeps about three decimal digits."""
     sub = _EINSUM_3D[axis]
     args = (a, mat) if axis == 2 else (mat, a)
-    prec = (jax.lax.Precision.HIGH if a.dtype == jnp.float32
-            else jax.lax.Precision.HIGHEST)
-    return jnp.einsum(sub, *args, precision=prec)
+    return jnp.einsum(sub, *args, precision=jax.lax.Precision.HIGHEST)
 
 
 def _apply_dft(a, axis: int, inverse: bool):
@@ -135,7 +128,7 @@ def fft3(a, mesh: Optional[Mesh] = None, inverse: bool = False, method: Optional
 
 
 # ---------------------------------------------------------------------------
-# DST-I z-transform + 2D x,y FFT: the reduced form of the odd-extension solve
+# DST-I z-transform + 2D x,y Hartley: the reduced form of the odd-extension solve
 # ---------------------------------------------------------------------------
 
 @lru_cache(maxsize=None)
@@ -148,8 +141,8 @@ def _dst1_matrix(n: int, f64: bool):
 
 
 def dst_z(a):
-    """Apply DST-I along axis 0 of (NZI, NY, NX) real data — one real MXU
-    matmul (the TPU-native form of the reference's odd-extension FFT in z,
+    """Apply DST-I along axis 0 of (NZI, NY, NX) real data — one real
+    matmul (the reduced form of the reference's odd-extension FFT in z,
     poisson.cu:114-158 + cufft z-transform)."""
     f64 = a.dtype == jnp.float64
     B = jnp.asarray(_dst1_matrix(a.shape[0], f64))
@@ -189,7 +182,7 @@ def _apply_hartley(a, axis: int):
 def hartley2_xy(a, mesh: Optional[Mesh] = None):
     """Unnormalized real Hartley transform along (y, x) of real (NZI, NY, NX).
     Self-inverse up to 1/(NY*NX) (the caller folds the normalization into
-    its overall scale).  Same resharding structure as fft2_xy."""
+    its overall scale)."""
     if mesh is None or mesh.devices.size == 1:
         for ax in (1, 2):
             a = _apply_hartley(a, ax)
@@ -207,54 +200,4 @@ def hartley2_xy(a, mesh: Optional[Mesh] = None):
     a = _apply_hartley(a, 2)                     # x local
     a = _cs(a, mesh, P(None, None, ("y", "x")))  # swap: y -> x-dim
     a = _apply_hartley(a, 1)                     # y local
-    return _cs(a, mesh, P(None, "y", "x"))
-
-
-def hartley_y(a, mesh: Optional[Mesh] = None):
-    """y-axis-only Hartley stage, for RHS data whose x axis was already
-    transformed inside the fused kernel (pallas/fused_step.py hartley_x):
-    the separable stages commute, so the solve runs dst_z -> hartley_y ->
-    symbol multiply -> hartley_y -> one local inverse x-stage.  Same
-    resharding structure as the y half of hartley2_xy."""
-    if mesh is None or mesh.devices.size == 1:
-        return _apply_hartley(a, 1)
-    pencil = "x" in mesh.axis_names
-    if not pencil:
-        a = _cs(a, mesh, P(None, None, "y"))     # all-to-all: y -> x
-        a = _apply_hartley(a, 1)                 # y local
-        return _cs(a, mesh, P(None, "y", None))
-    a = _cs(a, mesh, P(None, None, ("y", "x")))
-    a = _apply_hartley(a, 1)
-    return _cs(a, mesh, P(None, "y", "x"))
-
-
-def hartley_x_local(a):
-    """Single unnormalized x-Hartley stage (x must be locally complete —
-    true of the slab layouts used with the in-kernel hartley_x path)."""
-    return _apply_hartley(a, 2)
-
-
-def fft2_xy(a, mesh: Optional[Mesh] = None, inverse: bool = False,
-            method: Optional[str] = None):
-    """2D transform along (y, x) of (NZI, NY, NX); z stays local (its extent
-    NZ-2 is never mesh-divisible).  Distributed: reshard the transform axis
-    onto the other mesh axes so each 1D stage is local."""
-    method = method or default_method(mesh)
-    if mesh is None or mesh.devices.size == 1:
-        for ax in (1, 2):
-            a = _transform(a, ax, inverse, method)
-        return a
-
-    pencil = "x" in mesh.axis_names
-    if not pencil:
-        a = _cs(a, mesh, P(None, "y", None))
-        a = _transform(a, 2, inverse, method)   # x local
-        a = _cs(a, mesh, P(None, None, "y"))    # all-to-all: y -> x
-        a = _transform(a, 1, inverse, method)   # y local
-        return _cs(a, mesh, P(None, "y", None))
-
-    a = _cs(a, mesh, P(None, ("y", "x"), None))  # gather x onto y-dim
-    a = _transform(a, 2, inverse, method)        # x local
-    a = _cs(a, mesh, P(None, None, ("y", "x")))  # swap: y -> x-dim
-    a = _transform(a, 1, inverse, method)        # y local
     return _cs(a, mesh, P(None, "y", "x"))

@@ -1,470 +1,104 @@
-"""Multi-chip fast path: fused Pallas kernel per y-shard under shard_map.
+"""Kernel path on a y-slab mesh: the fused GPU kernel per shard under
+shard_map.
 
-GSPMD cannot partition a Pallas custom call, so the GSPMD path
-(parallel/mesh.py) falls back to the jnp oracle step under meshes.  This
-module is the production multi-chip path instead:
+GSPMD cannot partition a Pallas call, so on a ("y",) mesh each device runs
+the kernel (pallas/push_step.py, halo=True) on its own y-range:
 
-  - the (Q, Z, Y, X) state is slab-sharded over a ("y",) mesh,
-  - each chip runs the fused collide-stream kernel (pallas/fused_step.py,
-    halo=True) on its local y-range,
-  - the periodic y-wrap window pieces the kernel would read locally are
-    replaced by explicit 8-row halo BLOCKS — each shard's edge blocks,
-    exchanged around the mesh ring with `jax.lax.ppermute` over ICI before
-    the kernel runs (the reference has no analogue: its single GPU wraps
-    through global memory, LBM.cu:1970-1975),
-  - the spectral Poisson solve stays outside the shard_map and runs under
-    GSPMD (parallel/fft.py inserts the all-to-all repartitions between the
-    per-axis transform stages).
+  - before the kernel, each shard receives one population row from each
+    y-neighbour and two phi rows (the centred Ey difference of a halo row
+    reaches one row further), passed around the mesh ring with
+    `jax.lax.ppermute` — NCCL on the GPU;
+  - the halo rows' programs collide those nodes only to push into the
+    shard's edge rows, so no post-kernel fix-up exchange exists;
+  - the spectral Poisson solve runs outside the shard_map under GSPMD
+    (parallel/fft.py inserts the all-to-all repartitions).
 
-z is never sharded: it carries the wall physics and the DST (everything
-stays chip-local).  Pencil ("y", "x") meshes run the same per-shard fused
-kernel in its shard_x form (fused_step.py): the kernel wraps x LOCALLY
-(plain periodic lane roll, zero extra lanes) and the two wrong wrap
-columns per direction sign are repaired after the kernel by ppermuting
-each shard's own wrap columns around the mesh "x" ring (fix_x_columns —
-the locally wrapped column IS the value the neighbor needs).  The only
-pre-kernel x-halo is the 2-column packed phi array `pcol` feeding the
-in-kernel Ex stencil, built BEFORE the y-exchange so its exchanged edge
-rows carry the diagonal-shard corners.  Per-chip traffic is the plain
-kernel's plus column exchanges only; compiled pencil shards must be
-whole 128-lane tiles wide (SURVEY.md:161-163 pencil commitment; the
-single-GPU reference wraps x through global memory, LBM.cu:1970-1975).
-
-Per-shard perf gates use the LOCAL grid: make_halo_multi_step evaluates
-_phi_hx_capable on the shard's ny_local, so sharding 256^3 over 2+ chips
-(ny_local <= 128... TY < 128 at 4+) disables the phi_hx chunk encoding on
-exactly the strips where the round-3 TY-cliff measurements
-(scripts/tpu_ty_probe.py: 1292/1129/855/598 MLUPS at TY=64/32/16/8 vs
-1368.7 at TY=128) show the per-plane step is too short to hide the
-decode matmul — the same rule the single-chip gate encodes
-(fused_step.phi_hx_profitable).  The round-2 MULTICHIP/SCALING records
-were functional CPU-mesh runs, not perf numbers, so no recorded figure
-depended on the gate's state.
-
-This halo=True kernel variant is compile-proven on real hardware:
-scripts/tpu_halo_compile.py (1-device ('y',) mesh) compiles under Mosaic
-and reproduces the plain fused path bit-exactly (round-3).
-
-Comm/compute overlap (round-5, SURVEY.md:305): multi-step chunks run a
-one-step-lookahead pipeline — populations are final once the kernel (+
-pencil column fix) completes, so each step exchanges the NEXT step's
-population halo blocks right after its kernel, where XLA's
-latency-hiding scheduler is free to run the ppermutes concurrently with
-the serial spectral Poisson solve instead of gating the next kernel
-launch.  Only the 2-row phi halo (and the pencil pcol) depends on the
-solve output and stays at kernel time — <=4% of per-step ICI bytes.
-Bit-exact vs the serial form (same ppermutes, same rows, earlier) —
-tests/test_sharding.py test_overlapped_chunk_bit_exact_vs_serial.  A
-two-kernel interior/edge split was REJECTED on measured grounds: each
-extra strip pays the (TY+16)-row window amplification (the TY-cliff
-economics, scripts/tpu_ty_probe.py), ~+17% HBM traffic at ny_local=128
-— far above the overlap's gain.
-
-The kernel-side halo blocks are 8 rows deep (DMA sources must start on
-8-row tile boundaries, pallas/fused_step.py), but the kernel only ever
-reads the physics rows adjacent to the shard edge: window row 7 of the lo
-block / row 0 of the hi block for populations (the 1-deep streaming halo),
-and rows 6-7 / 0-1 of the phi blocks (the centered Ey difference reaches
-2 rows past the collide row range).  So only those rows ride ICI — 1 row
-per population field per side, 2 rows of phi — and each shard zero-pads
-them back to the aligned 8-row block locally (`_expand`).  Round 1 shipped
-the full 8-row blocks: 8x the streaming-halo ICI bytes (at ny_local = 32
-that was 25% of the shard rows re-sent every step; now 3.1%).
+Pencil ("y", "x") meshes run the GSPMD jnp step (parallel/mesh.py).
 """
 from __future__ import annotations
 
 import dataclasses
-from functools import lru_cache, partial
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
-import numpy as np
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from jax.sharding import Mesh, PartitionSpec as P
 
 from ..config import Config
 from ..state import State
 from .mesh import check_divisibility, state_shardings
 
-HALO = 8
 
-
-def supports_halo_step(cfg: Config, mesh, interpret: bool = False) -> bool:
-    """The shard_map + Pallas path needs >= 8 y-rows per shard; pencil
-    ("y", "x") meshes additionally need each x-shard to be whole 128-lane
-    tiles in compiled mode (the fused kernel's shard_x window DMA splits
-    the lane axis at x = NXL; interpret-mode tests run any width)."""
-    if mesh is None:
+def supports_halo_step(cfg: Config, mesh: Mesh) -> bool:
+    """A y-slab mesh whose shards hold at least the two phi halo rows."""
+    if "x" in mesh.axis_names or "y" not in mesh.axis_names:
         return False
     n = mesh.shape["y"]
-    if cfg.grid.ny % n:
-        return False
-    ny_local = cfg.grid.ny // n
-    if ny_local % 8 or ny_local < 8:
-        return False
-    if "x" in mesh.axis_names:
-        nx_n = mesh.shape["x"]
-        if cfg.grid.nx % nx_n:
-            return False
-        nx_local = cfg.grid.nx // nx_n
-        if not interpret and nx_local % 128:
-            return False
-    return True
+    return cfg.grid.ny % n == 0 and cfg.grid.ny // n >= 2
 
 
-@lru_cache(maxsize=None)
-def _local_fused(cfg_local: Config, dtype_name: str, interpret: bool,
-                 phi_hx: bool = False, shard_x: bool = False, pc_w: int = 128):
-    from ..pallas.fused_step import build_fused_step
-
-    return build_fused_step(
-        cfg_local, dtype=jnp.dtype(dtype_name), interpret=interpret, halo=True,
-        phi_hx=phi_hx, shard_x=shard_x, pc_w=pc_w,
-    )
-
-
-def _local_cfg(cfg: Config, nshards: int, nx_shards: int = 1) -> Config:
-    return dataclasses.replace(
-        cfg, grid=dataclasses.replace(
-            cfg.grid, ny=cfg.grid.ny // nshards,
-            nx=cfg.grid.nx // nx_shards)
-    )
+def _halo_rows(a, k: int, n: int):
+    """`a` (..., Y_local, X) with k rows of each y-neighbour on each side
+    (periodic around the mesh ring)."""
+    prev = [(i, (i + 1) % n) for i in range(n)]   # my last rows -> next
+    nxt = [(i, (i - 1) % n) for i in range(n)]    # my first rows -> prev
+    lo = jax.lax.ppermute(a[..., -k:, :], "y", prev)
+    hi = jax.lax.ppermute(a[..., :k, :], "y", nxt)
+    return jnp.concatenate([lo, a, hi], axis=-2)
 
 
 def step_halo(cfg: Config, state: State, mesh: Mesh,
-              interpret: bool = False, phi_hx: bool = False,
-              pop_halos=None, emit_halos: bool = False):
-    """One timestep: ppermute halo exchange + per-shard fused kernel under
-    shard_map, then the GSPMD spectral Poisson solve.
+              interpret: bool = False) -> State:
+    """One timestep on a y-slab mesh: halo exchange + per-shard kernel
+    under shard_map, then the GSPMD spectral Poisson solve."""
+    from ..ops.poisson import poisson_phi_from_rhs
+    from ..pallas.push_step import build_push_step
 
-    phi_hx=True: state.phi holds the x-Hartley-encoded potential psi_hx
-    (ops/poisson.py) — the halo rows exchange in psi space (the per-row
-    transform commutes with row exchange), the kernel decodes each window
-    plane on its MXU, and the solve runs with no x-stage at all
-    (poisson_psi_hx_from_rhs).  Used by make_halo_multi_step, which
-    encodes/decodes once per compiled chunk.
-
-    Comm/compute overlap (SURVEY.md:305, round-4 verdict item 1 — the
-    one-step-lookahead pipeline): populations are FINAL as soon as the
-    kernel (+ the pencil column fix) finishes — only phi changes
-    afterwards — so the next step's population halo blocks can be
-    exchanged right after the kernel, leaving XLA's latency-hiding
-    scheduler free to run those ppermutes concurrently with the serial
-    spectral Poisson solve instead of gating the next kernel launch.
-      pop_halos=(los, his): consume these pre-exchanged population halo
-        blocks (from the previous step's emit or initial_pop_halos)
-        instead of exchanging at kernel time.
-      emit_halos=True: also return the NEXT step's population halo
-        blocks, exchanged here — between the kernel and the solve in
-        dataflow order.  Returns (state', (los', his')).
-    The 2-row phi halo (and the pencil pcol) depends on the solve output,
-    so it stays at kernel time — it is <=4% of the per-step ICI bytes
-    (2 rows of one scalar vs one row of every population field).
-    Bit-exact vs the serial form: the same ppermutes move the same rows,
-    only earlier."""
+    if not supports_halo_step(cfg, mesh):
+        raise ValueError(f"mesh {dict(mesh.shape)} is not a y-slab with "
+                         f">= 2 rows per shard of ny={cfg.grid.ny}")
+    n = mesh.shape["y"]
     p = cfg.physics
-    nsh = mesh.shape["y"]
-    pencil = "x" in mesh.axis_names
-    nxs = mesh.shape["x"] if pencil else 1
-    pc_w = (8 if interpret else 128) if pencil else 128
-    cfg_local = _local_cfg(cfg, nsh, nxs)
-    fused = _local_fused(cfg_local, state.f.dtype.name, interpret, phi_hx,
-                         shard_x=pencil, pc_w=pc_w)
-    ek, th = p.enable_ek, p.enable_thermal
+    cfg_l = dataclasses.replace(
+        cfg, grid=dataclasses.replace(cfg.grid, ny=cfg.grid.ny // n))
+    fused = build_push_step(cfg_l, state.f.dtype.name, interpret, halo=True)
+    names = [k for k in ("f", "h", "hn", "g") if getattr(state, k) is not None]
+    pop = P(None, None, "y", None)
+    sc = P(None, "y", None)
 
-    two = p.two_species
-    xax = "x" if pencil else None
-    pop_s = P(None, None, "y", xax)
-    sca_s = P(None, "y", xax)
+    def local(*args):
+        pops = dict(zip(names, (_halo_rows(a, 1, n) for a in args[:len(names)])))
+        phi = _halo_rows(args[-1], 2, n) if p.enable_ek else None
+        out = fused(pops["f"], pops.get("h"), pops.get("hn"), pops.get("g"),
+                    phi)
+        return tuple(o for o in out if o is not None)
 
-    perm_fwd = [(i, (i + 1) % nsh) for i in range(nsh)]  # my rows -> right
-    perm_bwd = [(i, (i - 1) % nsh) for i in range(nsh)]  # my rows -> left
-    if pencil:
-        permx_fwd = [(i, (i + 1) % nxs) for i in range(nxs)]
-        permx_bwd = [(i, (i - 1) % nxs) for i in range(nxs)]
-
-    def exchange(arr, rows_axis, depth):
-        """(lo, hi) 8-row halo blocks for this shard, exchanging only the
-        `depth` physics rows the kernel reads (1 for populations — the
-        streaming halo; 2 for phi — the centered Ey stencil) and locally
-        zero-padding to the aligned 8-row block shape: lo physics rows sit
-        at the block's END (window rows 8-depth..7), hi rows at its START
-        (window rows 0..depth-1); the pad rows are never read."""
-        n_rows = arr.shape[rows_axis]
-        last = jax.lax.slice_in_dim(arr, n_rows - depth, n_rows,
-                                    axis=rows_axis)
-        first = jax.lax.slice_in_dim(arr, 0, depth, axis=rows_axis)
-        lo_sm = jax.lax.ppermute(last, "y", perm_fwd)
-        hi_sm = jax.lax.ppermute(first, "y", perm_bwd)
-
-        def _expand(blk, at_end):
-            pad = [(0, 0)] * blk.ndim
-            pad[rows_axis] = (HALO - depth, 0) if at_end else (0, HALO - depth)
-            return jnp.pad(blk, pad)
-
-        return _expand(lo_sm, True), _expand(hi_sm, False)
-
-    def build_pcol(phi):
-        """Packed phi-column x-halo (NZ, NYl, pc_w) for the in-kernel Ex
-        stencil (fused_step.py shard_x): lane 0 = phi(x=-1) (the LEFT
-        x-neighbor's last column), lane 1 = phi(x=NXL) (the RIGHT
-        neighbor's first).  Built BEFORE the y-exchange so its exchanged
-        edge rows carry the diagonal-shard corner values.  Filler lanes
-        replicate lane 0 (finite, never read)."""
-        ax = phi.ndim - 1
-        n = phi.shape[ax]
-        left = jax.lax.ppermute(       # my last column -> right neighbor
-            jax.lax.slice_in_dim(phi, n - 1, n, axis=ax), "x", permx_fwd)
-        right = jax.lax.ppermute(      # my first column -> left neighbor
-            jax.lax.slice_in_dim(phi, 0, 1, axis=ax), "x", permx_bwd)
-        fill = jnp.broadcast_to(left, left.shape[:-1] + (pc_w - 2,))
-        return jnp.concatenate([left, right, fill], axis=ax)
-
-    def fix_x_columns(out_k, lat_k, all_z):
-        """Repair the two x-wrap columns of a streamed output field.  The
-        kernel wrapped x locally, so out[d, z, y, 0] holds THIS shard's
-        post[d, z-ez, y-ey, NXL-1] — which is exactly the value the RIGHT
-        x-neighbor needs at its lane 0 (and symmetrically for ex=-1): each
-        shard just ppermutes its own wrap columns around the mesh "x" ring
-        and writes what it receives.  Corner values ride for free: the
-        sender's column already includes its y-halo-row streams.  Scalar
-        fields (all_z=False) skip the wall planes — their z=0/NZ-1 rows
-        are same-node reflections, never x-streamed (emit_wall)."""
-        E = lat_k.E
-        nzg = out_k.shape[1]
-        for sign, lane, perm in ((1, 0, permx_fwd),
-                                 (-1, out_k.shape[-1] - 1, permx_bwd)):
-            idx = np.array([d for d in range(lat_k.Q)
-                            if int(E[d][0]) == sign])
-            col = out_k[idx, :, :, lane]          # (nd, NZ, NYl)
-            recv = jax.lax.ppermute(col, "x", perm)
-            if not all_z:
-                zi = jax.lax.broadcasted_iota(jnp.int32, recv.shape, 1)
-                recv = jnp.where((zi > 0) & (zi < nzg - 1), recv, col)
-            out_k = out_k.at[idx, :, :, lane].set(recv)
-        return out_k
-
-    nspec = (2 if two else 1) if ek else 0
-    npops = 1 + nspec + (1 if th else 0)
-
-    def local_step(*args):
-        it = iter(args)
-        f = next(it)
-        h = next(it) if ek else None
-        hn = next(it) if ek and two else None
-        g_ = next(it) if th else None
-        phi = next(it) if ek else None
-
-        pops = [f] + ([h, hn] if ek and two else [h] if ek else []) + \
-            ([g_] if th else [])
-        if pop_halos is not None:
-            # lookahead pipeline: the blocks were exchanged during the
-            # PREVIOUS step (overlapping its Poisson solve)
-            los = [next(it) for _ in range(npops)]
-            his = [next(it) for _ in range(npops)]
-        else:
-            los, his = [], []
-            for a in pops:
-                lo, hi = exchange(a, 2, depth=1)
-                los.append(lo)
-                his.append(hi)
-        phi_lo = phi_hi = None
-        kw = {}
-        if ek:
-            phi_lo, phi_hi = exchange(phi, 1, depth=2)
-            if pencil:
-                pcol = build_pcol(phi)
-                pcol_lo, pcol_hi = exchange(pcol, 1, depth=1)
-                kw = dict(pcol_=pcol, pcol_lo=pcol_lo, pcol_hi=pcol_hi)
-
-        ret = fused(f, h, hn, g_, phi, lo=los, hi=his,
-                    phi_lo=phi_lo, phi_hi=phi_hi, **kw)
-        if pencil and nxs > 1:
-            f1, h1, hn1, g1, rhs = ret
-            f1 = fix_x_columns(f1, cfg.lattice, all_z=True)
-            h1 = fix_x_columns(h1, cfg.scalar_lat, False) \
-                if h1 is not None else None
-            hn1 = fix_x_columns(hn1, cfg.scalar_lat, False) \
-                if hn1 is not None else None
-            g1 = fix_x_columns(g1, cfg.scalar_lat, False) \
-                if g1 is not None else None
-            ret = (f1, h1, hn1, g1, rhs)
-        # drop inactive-field Nones so the outputs match out_specs
-        outs = [x for x in ret if x is not None]
-        if emit_halos:
-            # next step's population halos, exchanged HERE — after the
-            # kernel, independent of the solve that follows: XLA is free
-            # to hide these ppermutes under the solve's compute
-            elos, ehis = [], []
-            for a in outs[:npops]:
-                lo, hi = exchange(a, 2, depth=1)
-                elos.append(lo)
-                ehis.append(hi)
-            outs += elos + ehis
-        return tuple(outs)
-
-    in_specs = [pop_s] * (1 + nspec) + ([pop_s] if th else []) + \
-        ([sca_s] if ek else [])
-    if pop_halos is not None:
-        in_specs += [pop_s] * (2 * npops)
-    out_specs = [pop_s] * npops + ([sca_s] if ek else [])
-    if emit_halos:
-        out_specs += [pop_s] * (2 * npops)
-
-    sharded = jax.shard_map(
-        local_step, mesh=mesh,
-        in_specs=tuple(in_specs), out_specs=tuple(out_specs),
-        check_vma=False,
-    )
-
-    args = [state.f] + \
-        ([state.h, state.hn] if ek and two else [state.h] if ek else []) + \
-        ([state.g] if th else []) + ([state.phi] if ek else [])
-    if pop_halos is not None:
-        los_in, his_in = pop_halos
-        args += list(los_in) + list(his_in)
-    outs = list(sharded(*args))
-    f1 = outs.pop(0)
-    h1 = outs.pop(0) if ek else None
-    hn1 = outs.pop(0) if ek and two else None
-    g1 = outs.pop(0) if th else None
-    rhs = outs.pop(0) if ek else None
-    new_halos = None
-    if emit_halos:
-        new_halos = (tuple(outs[:npops]), tuple(outs[npops:2 * npops]))
-
+    args = [getattr(state, k) for k in names]
+    in_specs = [pop] * len(names)
+    if p.enable_ek:
+        args.append(state.phi)
+        in_specs.append(sc)
+    out_specs = [pop] * len(names) + ([sc] if p.enable_ek else [])
+    outs = jax.shard_map(local, mesh=mesh, in_specs=tuple(in_specs),
+                         out_specs=tuple(out_specs), check_vma=False)(*args)
+    new = dict(zip(names, outs))
     phi = state.phi
-    if ek:
-        if phi_hx:
-            from ..ops.poisson import poisson_psi_hx_from_rhs
-
-            phi = poisson_psi_hx_from_rhs(cfg, rhs, mesh)
-        else:
-            from ..ops.poisson import poisson_phi_from_rhs
-
-            phi = poisson_phi_from_rhs(cfg, rhs, mesh, rhs_hx=fused.hartley_x)
-        phi = jax.lax.with_sharding_constraint(phi, NamedSharding(mesh, sca_s))
-
+    if p.enable_ek:
+        phi = poisson_phi_from_rhs(cfg, outs[-1], mesh)
     dt = state.t.dtype.type(p.dt(cfg.grid.dx))
-    new_state = State(f=f1, h=h1, hn=hn1, g=g1, phi=phi, t=state.t + dt)
-    if emit_halos:
-        return new_state, new_halos
-    return new_state
-
-
-def initial_pop_halos(cfg: Config, state: State, mesh: Mesh):
-    """Exchange the CURRENT state's population halo blocks — the pipeline
-    prologue for the overlapped chunk (the steady-state blocks come from
-    each step's emit_halos)."""
-    ek, th = cfg.physics.enable_ek, cfg.physics.enable_thermal
-    two = cfg.physics.two_species
-    nsh = mesh.shape["y"]
-    pencil = "x" in mesh.axis_names
-    xax = "x" if pencil else None
-    pop_s = P(None, None, "y", xax)
-    perm_fwd = [(i, (i + 1) % nsh) for i in range(nsh)]
-    perm_bwd = [(i, (i - 1) % nsh) for i in range(nsh)]
-
-    def local(*pops):
-        los, his = [], []
-        for a in pops:
-            n_rows = a.shape[2]
-            last = jax.lax.slice_in_dim(a, n_rows - 1, n_rows, axis=2)
-            first = jax.lax.slice_in_dim(a, 0, 1, axis=2)
-            lo = jnp.pad(jax.lax.ppermute(last, "y", perm_fwd),
-                         [(0, 0), (0, 0), (HALO - 1, 0), (0, 0)])
-            hi = jnp.pad(jax.lax.ppermute(first, "y", perm_bwd),
-                         [(0, 0), (0, 0), (0, HALO - 1), (0, 0)])
-            los.append(lo)
-            his.append(hi)
-        return tuple(los) + tuple(his)
-
-    pops = [state.f] + \
-        ([state.h, state.hn] if ek and two else [state.h] if ek else []) + \
-        ([state.g] if th else [])
-    np_ = len(pops)
-    sharded = jax.shard_map(
-        local, mesh=mesh, in_specs=(pop_s,) * np_,
-        out_specs=(pop_s,) * (2 * np_), check_vma=False)
-    outs = sharded(*pops)
-    return tuple(outs[:np_]), tuple(outs[np_:])
+    return State(f=new["f"], h=new.get("h"), hn=new.get("hn"), g=new.get("g"),
+                 phi=phi, t=state.t + dt)
 
 
 def make_halo_multi_step(cfg: Config, mesh: Mesh, n: int,
-                         interpret: bool = False,
-                         overlap: Optional[bool] = None):
-    """n fused shard_map steps under one jit with stable shardings.
-
-    When the kernel can carry phi in x-Hartley encoding (pallas/step.py
-    _phi_hx_capable on the per-shard grid), the chunk encodes once, runs
-    every step x-stage-free, and decodes once — state in and out is
-    ordinary real phi either way."""
-    if overlap is None:
-        # A/B knob like EKPNP_HXRHS/EKPNP_PHIHX: EKPNP_OVERLAP=0 forces
-        # the serial exchange-then-kernel form (pod debugging / probes)
-        import os
-
-        overlap = os.environ.get("EKPNP_OVERLAP") != "0"
+                         interpret: bool = False):
+    """n kernel steps on a y-slab mesh under one jit with stable
+    shardings (unroll=2 so buffers ping-pong, as ekpnp.step.multi_step)."""
     check_divisibility(cfg, mesh)
-    if not supports_halo_step(cfg, mesh, interpret):
-        raise ValueError("halo step needs ny/n % 8 == 0 (and 128-lane "
-                         "x-shards on pencil meshes in compiled mode)")
-    pencil = "x" in mesh.axis_names
-    ny_local = cfg.grid.ny // mesh.shape["y"]
-    if ny_local < 32:
-        # Measured TY cliff (SCALING_r03 / scripts/tpu_ty_probe.py): per-chip
-        # throughput at 256^3 falls to 855/598 MLUPS at TY=16/8 vs 1369 at
-        # TY=128 — strong scaling past ny/32 shards burns chips at <44%
-        # efficiency.  Warn rather than refuse: tiny-shard runs are still
-        # correct (and the CPU-mesh tests use them).
-        import warnings
-
-        warnings.warn(
-            f"ny_local={ny_local} < 32 puts the fused kernel on the measured "
-            f"small-strip cliff (<=44% per-chip at 256^3, SCALING_r03); "
-            f"strong scaling beyond ny/32 shards is not efficient",
-            RuntimeWarning, stacklevel=2)
     st_sh = state_shardings(cfg, mesh)
 
-    from ..pallas.step import _phi_hx_capable
-
-    # pencil shards cannot carry the x-Hartley phi encoding: the cas
-    # matmul needs the full x extent on one chip (fused_step.py shard_x)
-    hx = (not pencil) and _phi_hx_capable(
-        _local_cfg(cfg, mesh.shape["y"]), interpret)
-
     def run(s):
-        if hx:
-            from ..ops.poisson import phi_from_psi_hx, psi_hx_from_phi
-
-            s = s._replace(phi=psi_hx_from_phi(cfg, s.phi))
-
-        # unroll=2 so buffers ping-pong (see step.multi_step)
-        if overlap:
-            # one-step-lookahead pipeline (SURVEY.md:305): each step's
-            # population-halo ppermutes run right after its kernel,
-            # overlapping the spectral solve; the kernel consumes blocks
-            # exchanged one step earlier.  Bit-exact vs overlap=False.
-            los0, his0 = initial_pop_halos(cfg, s, mesh)
-
-            def body(carry, _):
-                st, los, his = carry
-                st2, (los2, his2) = step_halo(
-                    cfg, st, mesh, interpret, phi_hx=hx,
-                    pop_halos=(los, his), emit_halos=True)
-                return (st2, los2, his2), None
-
-            (out, _, _), _ = jax.lax.scan(
-                body, (s, los0, his0), None, length=n, unroll=2)
-        else:
-            def body(carry, _):
-                return step_halo(cfg, carry, mesh, interpret,
-                                 phi_hx=hx), None
-
-            out, _ = jax.lax.scan(body, s, None, length=n, unroll=2)
-        if hx:
-            out = out._replace(phi=phi_from_psi_hx(cfg, out.phi))
-        return out
+        body = lambda c, _: (step_halo(cfg, c, mesh, interpret), None)
+        return jax.lax.scan(body, s, None, length=n, unroll=2)[0]
 
     return jax.jit(run, in_shardings=(st_sh,), out_shardings=st_sh,
                    donate_argnums=(0,))

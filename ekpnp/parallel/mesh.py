@@ -14,10 +14,9 @@ macroscopic extrapolation LBM.cu:663-801) and the Poisson odd extension
 wall update collective-free.  JAX also requires sharded extents to divide
 evenly — y/x are powers of two in all BASELINE configs while NZ is 2^k + 1.
 
-v1 path: GSPMD — `jax.jit` with these shardings over the pure step; XLA
-inserts collective-permutes for the streaming rolls and all-to-alls for the
-sharded-axis FFT automatically.  The explicit shard_map + Pallas-DMA halo
-path lives alongside for performance (parallel/halo.py).
+GSPMD: `jax.jit` with these shardings over the pure jnp step; XLA inserts
+collective-permutes for the streaming rolls and all-to-alls for the
+sharded-axis transforms of the spectral solve.
 """
 from __future__ import annotations
 
@@ -119,24 +118,10 @@ def shard_state(cfg, mesh: Mesh, state: State) -> State:
     )
 
 
-def _gspmd_cfg(cfg):
-    """The GSPMD path partitions pure XLA ops; the Pallas kernel is an
-    opaque custom call to it, so force the jnp step under meshes (the
-    shard_map + Pallas halo path is the dedicated multi-chip fast path)."""
-    import dataclasses
-
-    if not cfg.run.use_pallas:
-        return cfg
-    return dataclasses.replace(
-        cfg, run=dataclasses.replace(cfg.run, use_pallas=False)
-    )
-
-
 def make_sharded_step(cfg, mesh: Mesh, perturb: bool = False):
-    """jit-compiled step with explicit in/out shardings (GSPMD path)."""
+    """jit-compiled jnp step with explicit in/out shardings (GSPMD path)."""
     from ..step import step
 
-    cfg = _gspmd_cfg(cfg)
     check_divisibility(cfg, mesh)
     st_sh = state_shardings(cfg, mesh)
     mac_sh = macro_shardings(cfg, mesh)
@@ -149,31 +134,17 @@ def make_sharded_step(cfg, mesh: Mesh, perturb: bool = False):
 
 
 def make_sharded_multi_step(cfg, mesh: Mesh, n: int):
-    """n fused steps under one jit with stable shardings.
+    """n steps under one jit with stable shardings, on the path
+    `ekpnp.step.step_path` picks: the kernel per shard of a y-slab mesh
+    (parallel/halo.py), or the jnp step partitioned by XLA (GSPMD), with
+    collective-permutes for the streaming shifts and all-to-alls for the
+    spectral solve."""
+    from ..step import step, step_path
 
-    Dispatch: the shard_map + Pallas + ppermute fast path (parallel/halo.py)
-    when the mesh is a y-slab OR a 128-lane-aligned pencil and the Pallas
-    kernel is enabled; the GSPMD jnp-oracle path otherwise (unaligned
-    pencils, CPU, use_pallas=False)."""
-    import jax as _jax
+    if step_path(cfg, mesh) == "kernel":
+        from .halo import make_halo_multi_step
 
-    if cfg.run.use_pallas and _jax.default_backend() != "cpu":
-        from .halo import make_halo_multi_step, supports_halo_step
-
-        if supports_halo_step(cfg, mesh):
-            return make_halo_multi_step(cfg, mesh, n)
-        import warnings
-
-        warnings.warn(
-            f"mesh {dict(mesh.shape)} cannot run the fused per-shard kernel "
-            f"(needs ny_local a multiple of 8; pencil x-shards whole "
-            f"128-lane tiles): falling back to the GSPMD oracle step, "
-            f"measured ~8x slower per chip (SCALING_r02 "
-            f"tpu_single_chip_path_gap)", RuntimeWarning, stacklevel=2)
-
-    from ..step import step
-
-    cfg = _gspmd_cfg(cfg)
+        return make_halo_multi_step(cfg, mesh, n)
     check_divisibility(cfg, mesh)
     st_sh = state_shardings(cfg, mesh)
 

@@ -1,4 +1,4 @@
-"""State pytrees for the EK-PNP-3D TPU framework.
+"""State pytrees for the EK-PNP-3D solver.
 
 The reference uses 28 separately-allocated global device buffers with an SoA
 layout and double-buffer pointer pairs f1/f2 (reference LBM.h:131-141,
@@ -11,8 +11,8 @@ main.cu:78-109).  Here the state is one functional pytree:
   - optional physics (ions / thermal) are `None` entries in the pytree so the
     plain-hydrodynamics configs carry no dead memory.
 
-Axis order (Z, Y, X) puts x in TPU lanes and y in sublanes, matching the
-reference's x-fastest memory layout (reference LBM.h:182-185).
+Axis order (Z, Y, X) keeps x contiguous, matching the reference's
+x-fastest memory layout (reference LBM.h:182-185).
 """
 from __future__ import annotations
 

@@ -25,16 +25,31 @@ from .ops.stream import stream
 from .state import Macro, State
 
 
+def step_path(cfg: Config, mesh=None, platform: str | None = None) -> str:
+    """The one place that decides which step runs.
+
+    "jnp": the XLA-compiled jnp step below (the oracle; every platform
+    runs it, and GSPMD partitions it over any mesh).  "kernel": the fused
+    Pallas/Triton kernel (pallas/push_step.py), which only the GPU
+    compiles — on one device, or per shard of a y-slab mesh
+    (parallel/halo.py).  An unknown platform is an error, never a silent
+    fallback."""
+    platform = platform or jax.default_backend()
+    if platform == "cpu":
+        return "jnp"
+    if platform != "gpu":
+        raise RuntimeError(
+            f"no step path for platform {platform!r} (supported: cpu, gpu)")
+    if cfg.grid.nz < 4:   # the kernel's wall BCs need 4 z rows
+        return "jnp"
+    if mesh is not None:
+        from .parallel.halo import supports_halo_step
+
+        return "kernel" if supports_halo_step(cfg, mesh) else "jnp"
+    return "kernel"
+
+
 def step(cfg: Config, state: State, perturb: bool = False, mesh=None) -> tuple[State, Macro]:
-    if cfg.run.use_pallas and not perturb:
-        # custom_vjp wrapper: fused-kernel forward, jnp-oracle backward —
-        # free when not differentiating, exact adjoint when jax.grad is
-        # applied over the step chain (pallas/step.py step_pallas_diff)
-        from .pallas.step import step_pallas_diff
-
-        new = step_pallas_diff(cfg, state, mesh, False)
-        return new, None
-
     p = cfg.physics
     lat = cfg.lattice
     lat_s = cfg.scalar_lat
@@ -88,9 +103,22 @@ def step(cfg: Config, state: State, perturb: bool = False, mesh=None) -> tuple[S
     return new, macro
 
 
+def production_step(cfg: Config, state: State, mesh=None) -> State:
+    """One step on the path `step_path` picks for this process."""
+    if step_path(cfg) == "kernel":
+        from .pallas.step import step_kernel_diff
+
+        return step_kernel_diff(cfg, state, mesh, False)
+    return step(cfg, state, mesh=mesh)[0]
+
+
 @partial(jax.jit, static_argnums=(0, 2), donate_argnums=(1,))
-def step_jit(cfg: Config, state: State, perturb: bool = False) -> tuple[State, Macro]:
-    return step(cfg, state, perturb=perturb)
+def step_jit(cfg: Config, state: State, perturb: bool = False) -> State:
+    """One jitted step; the one-shot perturbed first step always runs the
+    jnp step (the convection seed replaces u inside its collide)."""
+    if perturb:
+        return step(cfg, state, perturb=True)[0]
+    return production_step(cfg, state)
 
 
 @partial(jax.jit, static_argnums=(0, 2), donate_argnums=(1,))
@@ -102,30 +130,11 @@ def multi_step(cfg: Config, state: State, n: int) -> State:
     every step (LBM.cu:807-813); here the inner loop carries populations
     only, saving HBM traffic.
 
-    The scan is unrolled x2: an XLA while-loop must update its carry
-    buffers in place, and the fused Pallas call (no input/output aliasing)
-    writes fresh output buffers — with one step per iteration XLA inserts
-    a full copy of every population field to restore the carry placement
-    (~22 ms/step at 256^3).  With a step pair per iteration, liveness lets
-    XLA assign the second call's outputs straight to the first call's dead
-    inputs — the buffers ping-pong A->B->A and the copies vanish, exactly
-    the reference's f1/f2 pointer swap (main.cu:192) reborn as buffer
-    assignment (measured: unroll=2 also beats a hand-written 2-step body
-    by ~3% at 256^3 and needs no odd-step epilogue).
-
-    On the fused-kernel EK path the chunk carries phi in x-Hartley
-    encoding (encode once, decode once — pallas/step.py
-    multi_step_pallas_hx), removing both x-stages from the serial
-    spectral solve; state in and out is ordinary real phi either way."""
-    if cfg.run.use_pallas:
-        from .pallas.step import _phi_hx_capable, multi_step_pallas_hx
-
-        if _phi_hx_capable(cfg):
-            return multi_step_pallas_hx(cfg, state, n)
-
+    The scan is unrolled x2 so the buffers ping-pong between two
+    allocations without a carry copy (the reference's f1/f2 pointer swap,
+    main.cu:192, as buffer assignment)."""
     def body(carry, _):
-        new, _ = step(cfg, carry)
-        return new, None
+        return production_step(cfg, carry), None
 
     state, _ = jax.lax.scan(body, state, None, length=n, unroll=2)
     return state

@@ -2,7 +2,8 @@
 
 The fake-backend strategy (SURVEY.md §4.4): XLA_FLAGS host-device-count
 gives an 8-device CPU mesh so every distributed code path is exercised
-without a TPU pod.  Must run before the first jax backend initialization.
+without a multi-GPU host.  Must run before the first jax backend
+initialization.
 """
 import os
 
@@ -12,7 +13,8 @@ os.environ["XLA_FLAGS"] = (
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")
+# JAX_PLATFORMS=cuda runs the `gpu`-marked tests on a card
+jax.config.update("jax_platforms", os.environ.get("JAX_PLATFORMS") or "cpu")
 jax.config.update("jax_enable_x64", True)
 
 import pytest  # noqa: E402
@@ -37,12 +39,41 @@ def pytest_configure(config):
         "markers", "pallas: interpret-mode Pallas/sharding equality tier")
     config.addinivalue_line(
         "markers", "physics: long physics-integration tier")
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU (skips elsewhere)")
 
 
 def pytest_collection_modifyitems(config, items):
     for item in items:
         fname = item.nodeid.split("::")[0].rsplit("/", 1)[-1].removesuffix(".py")
         item.add_marker(getattr(pytest.mark, _TIER_FILES.get(fname, "fast")))
+
+
+def perturbed_state(cfg, seed=0):
+    """Cold-start state with every population (and phi) perturbed by seeded
+    noise, so that a wrong direction, opposite or wrap shows up (a uniform
+    PB state is symmetric in x and y)."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from ekpnp.init import initialize
+
+    state, _ = initialize(cfg)
+    rng = np.random.default_rng(seed)
+
+    def noisy(a, amp):
+        if a is None:
+            return None
+        return a * (1 + amp * jnp.asarray(rng.standard_normal(a.shape)))
+
+    return state._replace(f=noisy(state.f, 1e-3), h=noisy(state.h, 1e-3),
+                          hn=noisy(state.hn, 1e-3), g=noisy(state.g, 1e-3),
+                          phi=noisy(state.phi, 1e-2))
+
+
+@pytest.fixture(scope="session")
+def perturbed():
+    return perturbed_state
 
 
 @pytest.fixture(scope="session")

@@ -1,5 +1,5 @@
-"""End-to-end differentiability of the coupled solver (TPU-first bonus
-capability — the CUDA reference has no adjoint path at all).
+"""End-to-end differentiability of the coupled solver (a capability the
+CUDA reference does not have: it has no adjoint path at all).
 
 The whole step chain (TRT collide -> wall BCs -> stream -> scalar BCs ->
 spectral Poisson solve) is pure jnp, so `jax.grad` delivers exact adjoint
@@ -69,13 +69,13 @@ def test_grad_through_coupled_steps_matches_finite_difference():
 
 
 def test_grad_through_pallas_fast_path_matches_oracle():
-    """Production-path differentiability (round-4 verdict item 6):
-    step_pallas_diff is the fused kernel forward with a custom_vjp whose
+    """Production-path differentiability: step_kernel_diff is the fused
+    GPU kernel forward (interpret mode here) with a custom_vjp whose
     backward runs the jnp-oracle adjoint.  Its jax.grad must equal the
     pure-jnp chain's grad (the two forwards agree to ~1e-11, so the
     adjoints do too)."""
     from ekpnp.ops.collide import compute_macro
-    from ekpnp.pallas.step import step_pallas_diff
+    from ekpnp.pallas.step import step_kernel_diff
 
     cfg = preset("reference", nx=16, ny=8, nz=9, dtype="float64",
                  fft_method="matmul")
@@ -98,7 +98,7 @@ def test_grad_through_pallas_fast_path_matches_oracle():
                 jnp.zeros((3,) + shape, dtype), 0.0)
             for _ in range(2):
                 if pallas:
-                    state = step_pallas_diff(cfg, state, None, True)
+                    state = step_kernel_diff(cfg, state, None, True)
                 else:
                     state, _ = step(cfg, state)
             macro_out, _ = compute_macro(cfg, state)

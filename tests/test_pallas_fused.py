@@ -1,384 +1,102 @@
-"""Fused Pallas kernel vs the jnp oracle (interpret mode, CPU, f64).
+"""Fused GPU kernel (pallas/push_step.py) vs the jnp oracle, in Pallas
+interpret mode on the CPU, f64.
 
 The jnp path is the validated correctness oracle (analytic physics tests);
-the fused kernel must reproduce it bit-for-bit up to op-reordering roundoff.
+the kernel must reproduce it up to op-reordering round-off, from states
+perturbed per population (conftest.perturbed_state).
 """
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from ekpnp import preset
-from ekpnp.init import initialize
-from ekpnp.pallas.step import step_pallas
+from ekpnp.pallas import push_step
+from ekpnp.pallas.step import step_kernel
 from ekpnp.step import step
 
 
-def _compare(cfg, steps=2, ty=0, atol_E=1e-8, pad_x=None, cchunk=-1,
-             emit_group=0):
-    state, _ = initialize(cfg)
-    s_ref = state
-    s_pal = state
+def compare_kernel(cfg, perturbed, steps=2):
+    s_ref = s_ker = perturbed(cfg)
     for _ in range(steps):
         s_ref, _ = step(cfg, s_ref)
-        s_pal, _ = step_pallas(cfg, s_pal, interpret=True, ty_override=ty,
-                               pad_x=pad_x, cchunk=cchunk,
-                               emit_group=emit_group)
+        s_ker = step_kernel(cfg, s_ker, interpret=True)
     for name in ("f", "h", "hn", "g", "phi"):
-        a, b = getattr(s_ref, name), getattr(s_pal, name)
+        a, b = getattr(s_ref, name), getattr(s_ker, name)
         if a is None:
-            assert b is None
+            assert b is None, name
             continue
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=1e-11, atol=1e-13, err_msg=name
-        )
-    if s_ref.phi is not None:
-        from ekpnp.ops.poisson import efield
-
-        np.testing.assert_allclose(
-            np.asarray(efield(cfg, s_ref.phi)), np.asarray(efield(cfg, s_pal.phi)),
-            rtol=1e-11, atol=atol_E, err_msg="E",
-        )
-
-
-def test_fused_full_coupled_single_strip():
-    cfg = preset("reference", nx=16, ny=8, nz=9, fft_method="matmul")
-    _compare(cfg)
-
-
-def test_fused_full_coupled_multi_strip():
-    # JY = 4 strips exercises the first/interior/last window DMA cases
-    cfg = preset("reference", nx=16, ny=32, nz=9, fft_method="matmul")
-    _compare(cfg, ty=8)
-
-
-def test_fused_zerograd_top_bc():
-    """zerograd-top charge BC runs FUSED (round-5, upgrading the round-4
-    oracle-fallback warning): the ion ghost-plane copy (any read of plane
-    NZ-1 post sources NZ-2) + the all-directions upper-plate ghost emit
-    must equal the oracle (reference LBM.cu:1929-1958 made live)."""
-    from ekpnp.pallas.fused_step import fused_supported
-
-    cfg = preset("reference", nx=16, ny=8, nz=9, fft_method="matmul",
-                 charge_bc="zerograd-top")
-    assert fused_supported(cfg)
-    _compare(cfg, steps=3)
-
-
-def test_fused_zerograd_top_d3q7_multi_strip():
-    cfg = preset("reference", nx=16, ny=32, nz=9, fft_method="matmul",
-                 charge_bc="zerograd-top", scalar_lattice="D3Q7")
-    _compare(cfg, ty=8)
-
-
-def test_fused_fluid_only():
-    cfg = preset(
-        "reference", nx=16, ny=8, nz=9, enable_ek=False, enable_thermal=False,
-        exf=1.0e6,
-    )
-    _compare(cfg, steps=3)
-
-
-def test_fused_fluid_thermal():
-    cfg = preset("reference", nx=16, ny=8, nz=9, enable_ek=False)
-    _compare(cfg, steps=3)
-
-
-def test_fused_moving_wall():
-    cfg = preset(
-        "reference", nx=16, ny=8, nz=9, enable_ek=False, enable_thermal=False,
-        uw=0.5,
-    )
-    _compare(cfg, steps=3)
-
-
-def test_fused_longer_run_stability():
-    cfg = preset("reference", nx=16, ny=8, nz=9, fft_method="matmul")
-    _compare(cfg, steps=6)
-
-
-def test_fused_fluid_only_d3q19():
-    # BASELINE config 1's lattice: D3Q19 through the same fused kernel
-    cfg = preset(
-        "poiseuille", nx=16, ny=16, nz=9, exf=1e9,
-        enable_ek=False, enable_thermal=False,
-    )
-    assert cfg.lattice.Q == 19
-    _compare(cfg)
-
-
-def test_fused_two_species_no_thermal():
-    # BASELINE config 3 (ek-pnp): both ion species, no temperature field
-    cfg = preset("ek-pnp", nx=16, ny=8, nz=9, fft_method="matmul")
-    assert cfg.physics.two_species and not cfg.physics.enable_thermal
-    _compare(cfg)
-
-
-def test_fused_single_species():
-    # BASELINE config 2 (single ion species) through the fused kernel
-    cfg = preset("ek-channel", nx=16, ny=8, nz=9, fft_method="matmul")
-    assert not cfg.physics.two_species
-    _compare(cfg)
-
-
-def test_fused_d3q7_scalars():
-    # reduced D3Q7 scalar-transport lattice (7/27 the HBM traffic per
-    # scalar field) through the fused kernel, vs the jnp oracle running
-    # the same mixed-lattice configuration
-    cfg = preset("reference", nx=16, ny=8, nz=9, fft_method="matmul",
-                 scalar_lattice="D3Q7")
-    assert cfg.scalar_lat.Q == 7
-    _compare(cfg, steps=3)
-
-
-def test_fused_d3q7_scalars_multi_strip():
-    cfg = preset("reference", nx=16, ny=32, nz=9, fft_method="matmul",
-                 scalar_lattice="D3Q7")
-    _compare(cfg, ty=8)
-
-
-def test_fused_d3q7_single_species_joule():
-    cfg = preset("ek-channel", nx=16, ny=8, nz=9, fft_method="matmul",
-                 scalar_lattice="D3Q7", joule=1.0e4)
-    _compare(cfg, steps=2)
-
-
-def test_fused_joule_heating():
-    # BASELINE config 4's Joule source through the fused kernel: the
-    # volumetric dt w_i joule (c+ + c-) |E|^2 term must match the oracle
-    cfg = preset("reference", nx=16, ny=8, nz=9, fft_method="matmul",
-                 joule=1.0e4)
-    _compare(cfg, steps=3)
-
-
-def test_fused_joule_single_species():
-    cfg = preset("ek-channel", nx=16, ny=8, nz=9, fft_method="matmul",
-                 joule=1.0e4)
-    _compare(cfg, steps=2)
-
-
-def test_fused_injection_bc():
-    # charge-injection Dirichlet anti-bounce-back at both plates
-    # (reference LBM.cu:2231-2292) through the fused kernel vs the oracle
-    cfg = preset("reference", nx=16, ny=8, nz=9, fft_method="matmul",
-                 charge_bc="injection")
-    _compare(cfg, steps=3)
-
-
-def test_fused_injection_bc_single_species_d3q7():
-    cfg = preset("ek-channel", nx=16, ny=8, nz=9, fft_method="matmul",
-                 scalar_lattice="D3Q7", charge_bc="injection")
-    _compare(cfg, steps=3)
-
-
-# ---------------------------------------------------------------------------
-# Chunked collide (round-3 verdict item 1): the collide runs in row
-# segments (build_fused_step cchunk) to bound vector-register pressure at
-# wide strips; pointwise per node, so any segmentation must be exactly the
-# whole-plane result.  cchunk=8 on TY=16/24 strips exercises multi-segment
-# plus odd-tail (R = TY+2 -> segments 8,8,2 / 8,8,8,2) on every field
-# combination the parity config uses.
-# ---------------------------------------------------------------------------
-
-def test_fused_chunked_collide_full_coupled():
-    cfg = preset("reference", nx=16, ny=16, nz=9, fft_method="matmul")
-    _compare(cfg, ty=16, cchunk=8)
-
-
-def test_fused_chunked_collide_multi_strip():
-    # chunked segments together with the first/interior/last DMA cases and
-    # the wall-plane u_override coupling (plane 1 -> plane 0, per segment)
-    cfg = preset("reference", nx=16, ny=48, nz=9, fft_method="matmul")
-    _compare(cfg, ty=24, cchunk=8, steps=3)
-
-
-def test_fused_chunked_collide_d3q7_scalars():
-    cfg = preset("reference", nx=16, ny=16, nz=9, fft_method="matmul",
-                 scalar_lattice="D3Q7")
-    _compare(cfg, ty=16, cchunk=8)
-
-
-def test_fused_chunked_single_species_joule():
-    cfg = preset("ek-channel", nx=16, ny=16, nz=9, fft_method="matmul",
-                 joule=1.0e4)
-    _compare(cfg, ty=16, cchunk=8)
-
-
-def test_fused_chunked_fluid_moving_wall():
-    cfg = preset("reference", nx=16, ny=16, nz=9, enable_ek=False,
-                 enable_thermal=False, uw=0.5)
-    _compare(cfg, ty=16, cchunk=8, steps=3)
-
-
-# ---------------------------------------------------------------------------
-# Grouped emit (build_fused_step emit_group): one shared (2, EG, TY, NX)
-# buffer replaces the per-field emit double buffers — saves ~25 MB at the
-# parity TY=128.  Equality across multi-group (EG < Q), odd-tail groups
-# (27 = 3x8 + 3), multi-strip, and together with chunked collide.
-# ---------------------------------------------------------------------------
-
-def test_fused_grouped_emit_full_coupled():
-    cfg = preset("reference", nx=16, ny=16, nz=9, fft_method="matmul")
-    _compare(cfg, ty=16, emit_group=8, steps=3)
-
-
-def test_fused_grouped_emit_multi_strip_chunked():
-    cfg = preset("reference", nx=16, ny=48, nz=9, fft_method="matmul")
-    _compare(cfg, ty=24, cchunk=8, emit_group=8, steps=3)
-
-
-def test_fused_grouped_emit_d3q7():
-    cfg = preset("reference", nx=16, ny=16, nz=9, fft_method="matmul",
-                 scalar_lattice="D3Q7")
-    _compare(cfg, ty=16, emit_group=4, steps=2)
-
-
-def test_fused_grouped_emit_fluid_only():
-    cfg = preset("reference", nx=16, ny=8, nz=9, enable_ek=False,
-                 enable_thermal=False, exf=1.0e6)
-    _compare(cfg, emit_group=16, steps=3)
-
-
-def test_fused_grouped_emit_three_slots():
-    # deeper slot rotation (emit_slots=3, whole-field groups): more DMA
-    # slack per VMEM byte; FN=4 fills with ES=3 exercises the
-    # non-divisible cross-plane slot mapping
-    cfg = preset("reference", nx=16, ny=16, nz=9, fft_method="matmul")
-    state, _ = initialize(cfg)
-    s_ref = state
-    s_pal = state
-    for _ in range(3):
-        s_ref, _ = step(cfg, s_ref)
-        s_pal, _ = step_pallas(cfg, s_pal, interpret=True, ty_override=16,
-                               emit_group=27, emit_slots=3)
-    import numpy as np
-    for name in ("f", "h", "hn", "g", "phi"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(s_ref, name)), np.asarray(getattr(s_pal, name)),
-            rtol=1e-11, atol=1e-13, err_msg=name)
-
-
-# ---------------------------------------------------------------------------
-# Padded-NX path (round-2 verdict item 1): widths that are not whole lane
-# tiles run the kernel on a padded array with the periodic x-wrap done by
-# the masked two-roll select (fused_step.roll_x).  pad_x here pads to small
-# multiples so interpret mode exercises exactly the compiled masked-wrap
-# code path; on TPU the same path pads to 128.
-# ---------------------------------------------------------------------------
-
-def test_fused_padded_reference_width():
-    # the reference's own NX = 50 (LBM.h:32), padded 50 -> 64
-    cfg = preset("reference", nx=50, ny=8, nz=9, fft_method="matmul")
-    _compare(cfg, pad_x=64)
-
-
-def test_fused_padded_fluid_only():
-    # x-periodic streaming alone (no EK/thermal), pad 12 -> 16, 3 steps so
-    # a wrapped population crosses the seam more than once
-    cfg = preset("reference", nx=12, ny=8, nz=9, enable_ek=False,
-                 enable_thermal=False, exf=1.0e6)
-    _compare(cfg, steps=3, pad_x=16)
-
-
-def test_fused_padded_multi_strip_d3q7():
-    cfg = preset("reference", nx=20, ny=32, nz=9, fft_method="matmul",
-                 scalar_lattice="D3Q7")
-    _compare(cfg, ty=8, pad_x=32)
-
-
-def test_fused_padded_moving_wall():
-    cfg = preset("reference", nx=10, ny=8, nz=9, enable_ek=False,
-                 enable_thermal=False, uw=0.5)
-    _compare(cfg, steps=3, pad_x=16)
-
-
-def test_fused_supported_covers_reference_and_baseline_grids():
-    from ekpnp.pallas.fused_step import fused_recommended, fused_supported
-
-    # the canonical reference grid (LBM.h:32-36) and BASELINE configs 1-4
-    assert fused_supported(preset("reference"))
-    assert fused_supported(preset("poiseuille"))
-    assert fused_supported(preset("ek-channel"))
-    assert fused_supported(preset("ek-pnp"))
-    assert fused_supported(preset("ek-pnp-thermal"))
-    # the auto-enable heuristic: large grids take the kernel, the tiny
-    # latency-bound canonical grid keeps the oracle (measured: 7.7 vs 8.4
-    # MLUPS there, 252 vs 104 at 64^3 — fused_recommended docstring)
-    assert not fused_recommended(preset("reference"))
-    assert fused_recommended(preset("ek-channel"))
-    assert fused_recommended(preset("ek-pnp"))
-    assert fused_recommended(preset("ek-pnp-thermal"))
-    assert fused_recommended(preset("pod"))
-
-
-def test_hx_fusion_profitability_gate(monkeypatch):
-    """The async x-Hartley RHS emission (hartley_x) auto-enables at every
-    strip width — measured a win even on the all-D3Q27 parity config's
-    TY=64 (647.3 vs 638.0 MLUPS, 256^3 v5e) — but the phi_hx chunk
-    decode, which sits on the window DMA-wait critical path, pays only on
-    wide strips (TY >= 128: D3Q7 +2.7%; TY=64 parity -7%, 601.6 vs
-    647.3).  EKPNP_PHIHX=1/0 force either way; interpret mode (CPU
-    equality tests) bypasses the perf gate."""
-    from ekpnp.pallas.fused_step import build_fused_step, phi_hx_profitable
-    from ekpnp.pallas.step import _phi_hx_capable
-
-    monkeypatch.delenv("EKPNP_PHIHX", raising=False)
-    monkeypatch.delenv("EKPNP_HXRHS", raising=False)
-    big = dict(nx=256, ny=256, nz=257, dtype="float32", fft_method="matmul")
-    c7 = preset("reference", scalar_lattice="D3Q7", **big)
-    cs = preset("reference", scalar_lattice="same", **big)
-    assert phi_hx_profitable(c7) and _phi_hx_capable(c7)
-    assert not phi_hx_profitable(cs) and not _phi_hx_capable(cs)
-    # hartley_x RHS emission auto-resolves ON for both (build only — the
-    # kernel is not traced here)
-    assert build_fused_step(c7, ty_override=128).hartley_x
-    assert build_fused_step(cs, ty_override=64).hartley_x
-    # forcing knobs and the interpret-mode bypass
-    monkeypatch.setenv("EKPNP_PHIHX", "1")
-    assert _phi_hx_capable(cs)
-    monkeypatch.setenv("EKPNP_PHIHX", "0")
-    assert not _phi_hx_capable(c7)
-    monkeypatch.delenv("EKPNP_PHIHX")
-    assert _phi_hx_capable(cs, interpret=True)
-    monkeypatch.setenv("EKPNP_HXRHS", "0")
-    assert not build_fused_step(cs, ty_override=64).hartley_x
-
-
-def test_fused_phi_hx_chunk_matches_oracle():
-    """The x-Hartley-encoded multi-step chunk (phi carried as psi_hx across
-    steps, both x-stages on the kernel's MXU — multi_step_pallas_hx) must
-    equal the oracle step sequence: encode -> n hx steps -> decode is
-    algebraically identical to n plain steps."""
-    from ekpnp.pallas.step import multi_step_pallas_hx
-
-    cfg = preset("reference", nx=16, ny=8, nz=9, fft_method="matmul")
-    state, _ = initialize(cfg)
-    s_ref = state
-    for _ in range(3):
-        s_ref, _ = step(cfg, s_ref)
-    s_hx = multi_step_pallas_hx(cfg, state, 3, interpret=True)
-    for name in ("f", "h", "hn", "g", "phi"):
-        a, b = getattr(s_ref, name), getattr(s_hx, name)
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=1e-11, atol=1e-13, err_msg=name
-        )
-
-
-def test_fused_phi_hx_chunk_d3q7_single_species():
-    from ekpnp.pallas.step import multi_step_pallas_hx
-
-    cfg = preset("ek-channel", nx=16, ny=8, nz=9, fft_method="matmul",
-                 scalar_lattice="D3Q7")
-    state, _ = initialize(cfg)
-    s_ref = state
-    for _ in range(2):
-        s_ref, _ = step(cfg, s_ref)
-    s_hx = multi_step_pallas_hx(cfg, state, 2, interpret=True)
-    for name in ("f", "h", "g", "phi"):
-        a, b = getattr(s_ref, name), getattr(s_hx, name)
-        if a is None:
-            assert b is None
-            continue
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=1e-11, atol=1e-13, err_msg=name
-        )
+        np.testing.assert_allclose(np.asarray(b), np.asarray(a), rtol=1e-11,
+                                   atol=1e-13 * float(jnp.max(jnp.abs(a))),
+                                   err_msg=name)
+    assert float(s_ker.t) == float(s_ref.t)
+
+
+_SMALL = dict(nx=16, ny=8, nz=9)
+_CASES = {
+    # (preset, overrides, steps)
+    "full_coupled": ("reference", dict(_SMALL), 2),
+    "full_coupled_longer_run": ("reference", dict(_SMALL, scalar_lattice="D3Q7"), 6),
+    "fluid_only": ("reference", dict(_SMALL, enable_ek=False,
+                                     enable_thermal=False, exf=1.0e6), 3),
+    "fluid_thermal": ("reference", dict(_SMALL, enable_ek=False,
+                                        scalar_lattice="D3Q7"), 3),
+    "moving_wall": ("reference", dict(_SMALL, enable_ek=False,
+                                      enable_thermal=False, uw=0.5), 3),
+    "moving_wall_reference_multis": (
+        "reference", dict(_SMALL, enable_ek=False, enable_thermal=False,
+                          uw=0.5, compat_ref_multis=True), 2),
+    "fluid_only_d3q19": ("poiseuille", dict(nx=16, ny=16, nz=9, exf=1e9), 2),
+    "two_species_no_thermal": ("ek-pnp", dict(_SMALL, scalar_lattice="D3Q7"), 2),
+    "single_species": ("ek-channel", dict(_SMALL, scalar_lattice="D3Q7"), 2),
+    "d3q7_scalars": ("reference", dict(_SMALL, scalar_lattice="D3Q7"), 3),
+    "d3q19_scalars": ("reference", dict(_SMALL, scalar_lattice="D3Q19"), 2),
+    "d3q7_single_species_joule": ("ek-channel", dict(
+        _SMALL, scalar_lattice="D3Q7", joule=1.0e4), 2),
+    "joule_heating": ("reference", dict(_SMALL, scalar_lattice="D3Q7",
+                                        joule=1.0e4), 3),
+    "injection_bc": ("reference", dict(_SMALL, charge_bc="injection"), 2),
+    "injection_bc_single_species_d3q7": ("ek-channel", dict(
+        _SMALL, scalar_lattice="D3Q7", charge_bc="injection"), 3),
+    "zerograd_top_bc": ("reference", dict(_SMALL, charge_bc="zerograd-top"), 2),
+    "zerograd_top_d3q7": ("reference", dict(
+        _SMALL, scalar_lattice="D3Q7", charge_bc="zerograd-top"), 3),
+    "zerograd_top_single_species": ("ek-channel", dict(
+        _SMALL, scalar_lattice="D3Q7", charge_bc="zerograd-top"), 2),
+    "non_power_of_two_grid": ("reference", dict(
+        nx=12, ny=5, nz=7, scalar_lattice="D3Q7"), 2),
+    "fewest_z_rows": ("reference", dict(nx=8, ny=4, nz=4,
+                                        scalar_lattice="D3Q7"), 2),
+    "dirichlet_plates_differ": ("reference", dict(
+        _SMALL, scalar_lattice="D3Q7", voltage2=2.0e-3), 2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_CASES))
+def test_fused_kernel_matches_oracle(case, perturbed):
+    name, overrides, steps = _CASES[case]
+    compare_kernel(preset(name, **overrides), perturbed, steps)
+
+
+def test_fused_reference_width(perturbed):
+    """The reference's own 50 x 8 x 51 grid (LBM.h:32-36): 50 is no power
+    of two, so the x tile carries masked lanes."""
+    compare_kernel(preset("reference", scalar_lattice="D3Q7"), perturbed,
+                   steps=1)
+
+
+def test_fused_multi_tile_x(monkeypatch, perturbed):
+    """Rows wider than one x tile: 20 nodes over 8-wide tiles — two full
+    tiles plus a masked tail, with the periodic x wrap crossing tiles."""
+    monkeypatch.setattr(push_step, "_BX", 8)
+    push_step.build_push_step.cache_clear()
+    try:
+        compare_kernel(preset("reference", nx=20, ny=4, nz=6,
+                              scalar_lattice="D3Q7"), perturbed, steps=2)
+    finally:
+        push_step.build_push_step.cache_clear()
+
+
+def test_fused_rejects_too_few_z_rows():
+    with pytest.raises(ValueError, match="nz=3"):
+        push_step.build_push_step(preset("reference", nx=8, ny=4, nz=3),
+                                  "float64", interpret=True)

@@ -101,35 +101,43 @@ def test_debye_huckel_double_layer():
 def test_dst_hartley_matches_odd_extension_oracle():
     """The reduced all-real solve (DST-I in z + Hartley in x,y) must equal
     the reference-shaped odd-extension complex-FFT solve to roundoff."""
-    from ekpnp.ops.poisson import _poisson_phi_ext, efield, poisson_solve_dst
+    from ekpnp.ops.poisson import (_poisson_phi_dst, _poisson_phi_ext,
+                                   charge_rhs, efield)
 
     rng = np.random.default_rng(3)
     c = jnp.asarray(rng.random((9, 8, 16)))
     cn = jnp.asarray(rng.random((9, 8, 16)))
-    cfg_mm = preset("reference", nx=16, ny=8, nz=9, fft_method="matmul")
-    cfg_ff = preset("reference", nx=16, ny=8, nz=9, fft_method="fft")
-    phi_h = poisson_solve_dst(cfg_mm, c, cn)        # hartley (matmul) path
-    phi_e = _poisson_phi_ext(cfg_ff, c, cn)         # odd-extension oracle
-    E_h, E_e = efield(cfg_mm, phi_h), efield(cfg_ff, phi_e)
+    cfg = preset("reference", nx=16, ny=8, nz=9)
+    rhs = charge_rhs(cfg, c, cn)
+    phi_h = _poisson_phi_dst(cfg, rhs)              # hartley (matmul) path
+    phi_e = _poisson_phi_ext(cfg, rhs)              # odd-extension oracle
+    E_h, E_e = efield(cfg, phi_h), efield(cfg, phi_e)
     scale = float(jnp.max(jnp.abs(phi_e)))
     np.testing.assert_allclose(np.asarray(phi_h), np.asarray(phi_e), atol=1e-14 * max(scale, 1))
     np.testing.assert_allclose(np.asarray(E_h), np.asarray(E_e), atol=1e-6)
 
 
-def test_rhs_hx_solve_matches_plain_rhs_solve():
-    """The rhs_hx variant (RHS pre-transformed along x, as the fused kernel
-    emits it on its idle MXU) must equal the plain solve to roundoff — the
-    separable transform stages commute exactly."""
-    from ekpnp.ops.poisson import charge_rhs, poisson_phi_from_rhs
-    from ekpnp.parallel.fft import hartley_x_local
+@pytest.mark.parametrize("fft_method, expect", [
+    ("auto", "fft"), ("fft", "fft"), ("matmul", "matmul")])
+def test_solve_method_dispatch(fft_method, expect):
+    """One solve per config on every path: `auto` is the odd-extension
+    oracle on the CPU; the step's kernel path (poisson_phi_from_rhs) and
+    the jnp path (poisson_phi) take the same solve."""
+    from ekpnp.ops.poisson import (charge_rhs, poisson_phi,
+                                   poisson_phi_from_rhs, solve_method)
 
-    rng = np.random.default_rng(5)
-    cfg = preset("reference", nx=16, ny=8, nz=9, fft_method="matmul")
+    cfg = preset("reference", nx=16, ny=8, nz=9, fft_method=fft_method)
+    assert solve_method(cfg) == expect
+    rng = np.random.default_rng(4)
     c = jnp.asarray(rng.random((9, 8, 16)))
     cn = jnp.asarray(rng.random((9, 8, 16)))
-    rhs = charge_rhs(cfg, c, cn)
-    phi_plain = poisson_phi_from_rhs(cfg, rhs)
-    phi_hx = poisson_phi_from_rhs(cfg, hartley_x_local(rhs), rhs_hx=True)
-    scale = float(jnp.max(jnp.abs(phi_plain)))
-    np.testing.assert_allclose(np.asarray(phi_hx), np.asarray(phi_plain),
-                               atol=1e-12 * max(scale, 1))
+    np.testing.assert_array_equal(
+        np.asarray(poisson_phi_from_rhs(cfg, charge_rhs(cfg, c, cn))),
+        np.asarray(poisson_phi(cfg, c, cn)))
+
+
+def test_solve_method_rejects_unknown():
+    from ekpnp.ops.poisson import solve_method
+
+    with pytest.raises(ValueError, match="fft_method"):
+        solve_method(preset("reference", fft_method="dct"))

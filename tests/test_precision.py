@@ -1,7 +1,7 @@
 """f32-vs-f64 precision envelope of the coupled step (round-4 verdict
 item 8; SURVEY.md §2.5 precision-policy row).
 
-The TPU production path runs f32 while the reference is all-double
+The GPU production path runs f32 while the reference is all-double
 (LBM.cu), so the f32 envelope is a first-class spec: these tests turn
 the committed 1000-step observation (benchmarks/runs/README.md — current
 6e-5 rel, umax ~9% low at the f32 resolution floor) into a regression
@@ -10,7 +10,7 @@ the solve would widen these deltas and fail here.  The quantitative
 table lives in PARITY.md ("precision envelope").
 
 Measured at 200 steps of the reference config (CPU, jnp oracle path —
-the fused kernel equals it to 1e-11, test_pallas_fused.py):
+the GPU kernel equals it to 1e-11, test_pallas_fused.py):
     current:  2.0e-5 rel        umax_uz: 7.5e-7 abs (~14% rel: u ~ 5e-6
     mean T:   1.2e-4 rel        sits on the f32 floor near rho0=1000)
 """

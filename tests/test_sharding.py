@@ -66,189 +66,103 @@ def test_indivisible_mesh_rejected(eight_devices):
         pmesh.shard_state(cfg, m, state)
 
 
-def test_halo_shardmap_matches_single_pallas(eight_devices):
-    """The multi-chip fast path (fused Pallas kernel per y-shard +
-    ppermute halo blocks, parallel/halo.py) must reproduce the
-    single-device fused step to f64 roundoff."""
+def _oracle(cfg, state, steps):
+    for _ in range(steps):
+        state, _ = step(cfg, state)
+    return state
+
+
+def _assert_state_close(a, b, names=("f", "h", "hn", "g", "phi")):
+    for name in names:
+        x, y = getattr(a, name), getattr(b, name)
+        if x is None:
+            assert y is None, name
+            continue
+        np.testing.assert_allclose(
+            np.asarray(y), np.asarray(x), rtol=1e-11,
+            atol=1e-13 * float(jnp.max(jnp.abs(x))), err_msg=name)
+
+
+def _halo_vs_oracle(cfg, devices, perturbed, steps=2):
+    """The kernel per y-shard (parallel/halo.py, interpret mode) through
+    the multi-step chunk (jit + scan + donation + stable shardings) must
+    equal the single-device jnp oracle."""
     from ekpnp.parallel import halo as phalo
-    from ekpnp.pallas.step import step_pallas
 
-    cfg = preset(
-        "reference", nx=16, ny=32, nz=9, fft_method="matmul", use_pallas=True
-    )
-    state, _ = initialize(cfg)
-
-    s1 = state
-    for _ in range(2):
-        s1, _ = step_pallas(cfg, s1, interpret=True)
-
-    m = pmesh.make_mesh(eight_devices[:4], pencil=False)
+    state = perturbed(cfg, seed=1)
+    ref = _oracle(cfg, state, steps)   # before the sharded run donates
+    m = pmesh.make_mesh(devices, pencil=False)
     assert phalo.supports_halo_step(cfg, m)
-    s4 = pmesh.shard_state(cfg, m, state)
-    for _ in range(2):
-        s4 = phalo.step_halo(cfg, s4, m, interpret=True)
-
-    for name in ("f", "h", "hn", "g", "phi"):
-        a, b = getattr(s1, name), getattr(s4, name)
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=1e-11, atol=1e-13, err_msg=name
-        )
+    run = phalo.make_halo_multi_step(cfg, m, steps, interpret=True)
+    out = run(pmesh.shard_state(cfg, m, state))
+    _assert_state_close(ref, out)
 
 
-def test_halo_shardmap_injection_bc(eight_devices):
-    """The charge-injection Dirichlet BC (reference LBM.cu:2231-2292)
-    through the shard_map halo path equals the single-device fused step —
-    the wall anti-bounce-back happens per shard inside emit_wall."""
-    from ekpnp.parallel import halo as phalo
-    from ekpnp.pallas.step import step_pallas
-
-    cfg = preset("reference", nx=16, ny=32, nz=9, fft_method="matmul",
-                 use_pallas=True, charge_bc="injection")
-    state, _ = initialize(cfg)
-    s1 = state
-    for _ in range(2):
-        s1, _ = step_pallas(cfg, s1, interpret=True)
-    m = pmesh.make_mesh(eight_devices[:4], pencil=False)
-    s4 = pmesh.shard_state(cfg, m, state)
-    for _ in range(2):
-        s4 = phalo.step_halo(cfg, s4, m, interpret=True)
-    for name in ("f", "h", "hn", "phi"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(s1, name)), np.asarray(getattr(s4, name)),
-            rtol=1e-11, atol=1e-13, err_msg=name)
+def test_halo_shardmap_matches_single_pallas(eight_devices, perturbed):
+    cfg = preset("reference", nx=16, ny=8, nz=9)
+    _halo_vs_oracle(cfg, eight_devices[:4], perturbed)
 
 
-def test_halo_shardmap_d3q7_scalars(eight_devices):
-    """Mixed per-field lattices (D3Q27 fluid + D3Q7 scalars) through the
-    shard_map halo path: the exchanged halo blocks have per-field
-    direction counts."""
-    from ekpnp.parallel import halo as phalo
-    from ekpnp.pallas.step import step_pallas
-
-    cfg = preset("reference", nx=16, ny=32, nz=9, fft_method="matmul",
-                 use_pallas=True, scalar_lattice="D3Q7")
-    state, _ = initialize(cfg)
-    assert state.h.shape[0] == 7 and state.f.shape[0] == 27
-    s1 = state
-    for _ in range(2):
-        s1, _ = step_pallas(cfg, s1, interpret=True)
-
-    m = pmesh.make_mesh(eight_devices[:4], pencil=False)
-    s4 = pmesh.shard_state(cfg, m, state)
-    for _ in range(2):
-        s4 = phalo.step_halo(cfg, s4, m, interpret=True)
-    for name in ("f", "h", "hn", "g", "phi"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(s1, name)), np.asarray(getattr(s4, name)),
-            rtol=1e-11, atol=1e-13, err_msg=name)
-
-
-def test_halo_shardmap_single_species(eight_devices):
-    """Single-species + fluid-only field layouts through the shard_map
-    halo path (inactive fields are absent from the exchanged pytree)."""
-    from ekpnp.parallel import halo as phalo
-    from ekpnp.pallas.step import step_pallas
-
-    cfg = preset("ek-channel", nx=16, ny=16, nz=9, fft_method="matmul",
-                 use_pallas=True)
-    state, _ = initialize(cfg)
-    s1, _ = step_pallas(cfg, state, interpret=True)
-
-    m = pmesh.make_mesh(eight_devices[:2], pencil=False)
-    s2 = pmesh.shard_state(cfg, m, state)
-    s2 = phalo.step_halo(cfg, s2, m, interpret=True)
-    for name in ("f", "h", "phi"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(s1, name)), np.asarray(getattr(s2, name)),
-            rtol=1e-11, atol=1e-13, err_msg=name)
-    assert s1.hn is None and s2.hn is None
-
-
-def test_pencil_shardmap_matches_single_pallas(eight_devices):
-    """The pencil fast path (fused Pallas kernel in its shard_x form per
-    ("y", "x") shard + ppermute x-halo tiles, parallel/halo.py) must
-    reproduce the single-device fused step to f64 roundoff — including
-    the diagonal-corner streams (ey, ex both nonzero) that cross shard
-    corners, exercised over 2 steps."""
-    from ekpnp.parallel import halo as phalo
-    from ekpnp.pallas.step import step_pallas
-
-    cfg = preset(
-        "reference", nx=32, ny=16, nz=9, fft_method="matmul", use_pallas=True
-    )
-    state, _ = initialize(cfg)
-
-    s1 = state
-    for _ in range(2):
-        s1, _ = step_pallas(cfg, s1, interpret=True)
-
-    m = pmesh.make_mesh(eight_devices, pencil=True)  # ("y", "x") = (2, 4)
-    assert phalo.supports_halo_step(cfg, m, interpret=True)
-    s8 = pmesh.shard_state(cfg, m, state)
-    # through the production multi-step chunk (jit + scan + donation +
-    # stable shardings), not just the single-step entry
-    run = phalo.make_halo_multi_step(cfg, m, 2, interpret=True)
-    s8 = run(s8)
-
-    for name in ("f", "h", "hn", "g", "phi"):
-        a, b = getattr(s1, name), getattr(s8, name)
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=1e-11, atol=1e-13, err_msg=name
-        )
-
-
-def test_pencil_shardmap_d3q7_injection(eight_devices):
-    """Pencil fast path with mixed lattices (D3Q27 fluid + D3Q7 scalars)
-    and the charge-injection Dirichlet BC on a (2, 2) mesh."""
-    from ekpnp.parallel import halo as phalo
-    from ekpnp.pallas.step import step_pallas
-
-    cfg = preset("reference", nx=16, ny=16, nz=9, fft_method="matmul",
-                 use_pallas=True, scalar_lattice="D3Q7",
+def test_halo_shardmap_injection_bc(eight_devices, perturbed):
+    """Charge-injection Dirichlet BC (reference LBM.cu:2231-2292): the wall
+    anti-bounce-back happens per shard inside the kernel."""
+    cfg = preset("reference", nx=16, ny=8, nz=9, scalar_lattice="D3Q7",
                  charge_bc="injection")
-    state, _ = initialize(cfg)
-    s1 = state
-    for _ in range(2):
-        s1, _ = step_pallas(cfg, s1, interpret=True)
+    _halo_vs_oracle(cfg, eight_devices[:4], perturbed)
 
-    m = pmesh.make_mesh(eight_devices[:4], pencil=True)  # (2, 2)
-    s4 = pmesh.shard_state(cfg, m, state)
-    for _ in range(2):
-        s4 = phalo.step_halo(cfg, s4, m, interpret=True)
+
+def test_halo_shardmap_d3q7_scalars(eight_devices, perturbed):
+    """Mixed per-field lattices (D3Q27 fluid + D3Q7 scalars): the exchanged
+    halo rows have per-field direction counts."""
+    cfg = preset("reference", nx=16, ny=16, nz=9, scalar_lattice="D3Q7")
+    _halo_vs_oracle(cfg, eight_devices[:4], perturbed)
+
+
+def test_halo_shardmap_single_species(eight_devices, perturbed):
+    """Single-species layout: the inactive hn field is absent from the
+    exchanged pytree."""
+    cfg = preset("ek-channel", nx=16, ny=8, nz=9, scalar_lattice="D3Q7")
+    _halo_vs_oracle(cfg, eight_devices[:2], perturbed)
+
+
+def test_halo_shardmap_zerograd_top(eight_devices, perturbed):
+    cfg = preset("reference", nx=16, ny=8, nz=9, scalar_lattice="D3Q7",
+                 charge_bc="zerograd-top")
+    _halo_vs_oracle(cfg, eight_devices[:4], perturbed)
+
+
+def test_halo_shardmap_fluid_moving_wall(eight_devices, perturbed):
+    cfg = preset("reference", nx=16, ny=8, nz=9, enable_ek=False,
+                 enable_thermal=False, uw=0.5)
+    _halo_vs_oracle(cfg, eight_devices[:4], perturbed, steps=3)
+
+
+def test_halo_multi_step_chunk_matches_single(eight_devices, perturbed):
+    """Two rows per shard (the fewest the two-row phi halo allows), Joule
+    heating, 3 steps — odd, so the scan's unroll-by-2 has a remainder."""
+    cfg = preset("reference", nx=16, ny=16, nz=9, scalar_lattice="D3Q7",
+                 joule=1.0e4)
+    _halo_vs_oracle(cfg, eight_devices, perturbed, steps=3)
+
+
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (2, 4)])
+def test_pencil_gspmd_chunk_matches_single(eight_devices, mesh_shape,
+                                           perturbed):
+    """Pencil meshes run the jnp step under GSPMD, through the production
+    multi-step chunk, with mixed lattices and the injection BC."""
+    cfg = preset("reference", nx=16, ny=8, nz=9, fft_method="matmul",
+                 scalar_lattice="D3Q7", charge_bc="injection")
+    state = perturbed(cfg, seed=1)
+    ref = _oracle(cfg, state, 2)   # before the sharded run donates
+    n = mesh_shape[0] * mesh_shape[1]
+    m = pmesh.make_mesh(eight_devices[:n], pencil=True)
+    assert dict(m.shape) == {"y": mesh_shape[0], "x": mesh_shape[1]}
+    out = pmesh.make_sharded_multi_step(cfg, m, 2)(
+        pmesh.shard_state(cfg, m, state))
     for name in ("f", "h", "hn", "g", "phi"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(s1, name)), np.asarray(getattr(s4, name)),
-            rtol=1e-11, atol=1e-13, err_msg=name)
-
-
-@pytest.mark.parametrize("pencil", [False, True])
-def test_overlapped_chunk_bit_exact_vs_serial(eight_devices, pencil):
-    """Halo-comm/compute overlap (SURVEY.md:305, round-5): the
-    one-step-lookahead pipeline — each step's population-halo ppermutes
-    issued right after its kernel so XLA can hide them under the spectral
-    solve — moves the same rows through the same ppermutes as the serial
-    exchange-then-kernel form, so overlap=True must be BIT-exact vs
-    overlap=False, on slab and pencil meshes."""
-    from ekpnp.parallel import halo as phalo
-
-    cfg = preset("reference", nx=16, ny=32, nz=9, fft_method="matmul",
-                 use_pallas=True, scalar_lattice="D3Q7")
-    state, _ = initialize(cfg)
-    m = pmesh.make_mesh(eight_devices[:4], pencil=pencil)
-
-    def fresh():
-        c = jax.tree_util.tree_map(lambda x: jnp.array(x), state,
-                                   is_leaf=lambda x: x is None)
-        return pmesh.shard_state(cfg, m, c)
-
-    a = phalo.make_halo_multi_step(cfg, m, 3, interpret=True,
-                                   overlap=False)(fresh())
-    b = phalo.make_halo_multi_step(cfg, m, 3, interpret=True,
-                                   overlap=True)(fresh())
-    for name in ("f", "h", "hn", "g", "phi"):
-        np.testing.assert_array_equal(
-            np.asarray(getattr(a, name)), np.asarray(getattr(b, name)),
-            err_msg=name)
+        np.testing.assert_allclose(np.asarray(getattr(out, name)),
+                                   np.asarray(getattr(ref, name)),
+                                   rtol=1e-12, atol=1e-14, err_msg=name)
 
 
 def test_sharded_checkpoint_mesh_elastic(eight_devices, tmp_path):
@@ -275,32 +189,3 @@ def test_sharded_checkpoint_mesh_elastic(eight_devices, tmp_path):
             assert np.array_equal(got, want), \
                 f"{name} not bit-exact restoring onto {dict(target.shape)}"
         assert float(back.t) == float(state.t)
-
-
-def test_halo_multi_step_hx_chunk_matches_single(eight_devices):
-    """The sharded multi-step chunk with x-Hartley-encoded phi carry
-    (make_halo_multi_step routing through step_halo phi_hx=True: encode
-    once, x-stage-free steps, decode once) must equal the single-device
-    fused step sequence."""
-    from ekpnp.parallel import halo as phalo
-    from ekpnp.pallas.step import _phi_hx_capable, step_pallas
-
-    cfg = preset("reference", nx=16, ny=32, nz=9, fft_method="matmul",
-                 use_pallas=True, scalar_lattice="D3Q7")
-    assert _phi_hx_capable(cfg, interpret=True)
-    state, _ = initialize(cfg)
-
-    s1 = state
-    for _ in range(3):
-        s1, _ = step_pallas(cfg, s1, interpret=True)
-
-    m = pmesh.make_mesh(eight_devices[:4], pencil=False)
-    s4 = pmesh.shard_state(cfg, m, state)
-    run = phalo.make_halo_multi_step(cfg, m, 3, interpret=True)
-    s4 = run(s4)
-
-    for name in ("f", "h", "hn", "g", "phi"):
-        a, b = getattr(s1, name), getattr(s4, name)
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=1e-11, atol=1e-13, err_msg=name
-        )

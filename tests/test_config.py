@@ -53,7 +53,7 @@ def test_cli_accepts_config_file(tmp_path, capsys):
 def test_parse_overrides_bool_coercion():
     """--set flag=false must DISABLE the flag (round-4 advisor finding:
     ast.literal_eval only knows Python True/False, so lowercase spellings
-    survived as truthy strings — `use_pallas=false` forced Pallas ON)."""
+    survived as truthy strings and switched boolean options ON)."""
     from ekpnp.run import _parse_overrides
 
     out = _parse_overrides([
